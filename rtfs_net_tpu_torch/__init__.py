@@ -1,0 +1,14 @@
+"""PyTorch/CUDA port of ``rtfs_net_tpu`` for NVIDIA Hopper.
+
+Module paths mirror ``rtfs_net_tpu/`` (``ops/rnn.py`` <-> ``ops/rnn.py``);
+parameter names follow the reference torch implementation, so a port
+``state_dict`` is what ``rtfs_net_tpu.utils.avnet_convert.convert_avnet``
+consumes and reference checkpoints load with ``load_state_dict``.
+
+The hot recurrence runs as a hand-written CUDA kernel
+(``csrc/sru_stack_layer.cu``), built by ``nvcc`` at first use; everything
+else is plain PyTorch. Entry points run on ``cuda`` unless the caller
+passes ``device="cpu"``.
+"""
+
+__version__ = "0.1.0"

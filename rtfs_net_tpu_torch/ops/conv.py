@@ -1,0 +1,161 @@
+"""Convolutions on channel-first tensors with torch's weight layouts
+(Conv: (O, I/g, *k); ConvTranspose: (I, O/g, *k); Linear: (O, I)).
+
+Parameters stay float32 and are cast to the activation's dtype at each
+call, as the JAX package does, so one module serves float32 and bfloat16
+inputs. ``padding="same"`` is torch's own: for an even kernel it pads
+``total // 2`` on the left and the rest on the right, which is what the
+reference relies on (``conv_layers.py:100-101``).
+"""
+from __future__ import annotations
+
+import math
+from typing import Sequence, Tuple, Union
+
+import torch
+from torch import nn
+import torch.nn.functional as F
+
+IntOrTuple = Union[int, Sequence[int]]
+
+_CONV = {1: F.conv1d, 2: F.conv2d}
+_CONV_T = {1: F.conv_transpose1d, 2: F.conv_transpose2d}
+
+
+def _to_tuple(v: IntOrTuple, ndim: int) -> Tuple[int, ...]:
+    if isinstance(v, (list, tuple)):
+        assert len(v) == ndim, (v, ndim)
+        return tuple(int(x) for x in v)
+    return (int(v),) * ndim
+
+
+def _resolve_padding(padding, kernel, dilation):
+    """(explicit F.pad spec or None, conv padding). ``"same"`` pads
+    ``total // 2`` before and the rest after, torch's rule for an even
+    kernel (``rtfs_net_tpu/ops/conv.py:_resolve_padding``)."""
+    if padding == "valid":
+        return None, 0
+    if padding != "same":
+        return None, _to_tuple(padding, len(kernel))
+    lo_hi = [(d * (k - 1) // 2, d * (k - 1) - d * (k - 1) // 2)
+             for k, d in zip(kernel, dilation)]
+    if all(lo == hi for lo, hi in lo_hi):
+        return None, tuple(lo for lo, _ in lo_hi)
+    # F.pad lists the last dim first
+    return tuple(p for lo, hi in reversed(lo_hi) for p in (lo, hi)), 0
+
+
+def _uniform_(t, bound: float, generator):
+    with torch.no_grad():
+        t.uniform_(-bound, bound, generator=generator)
+
+
+class _Weighted(nn.Module):
+    """A weight of ``wshape`` plus an optional bias, initialised like torch
+    (kaiming-uniform a=sqrt(5): U(±1/sqrt(fan_in)) for both) or with
+    xavier-uniform on the weight."""
+
+    def __init__(self, wshape, n_out: int, fan_in: int, fan_out: int,
+                 bias: bool, xavier_init: bool):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(wshape))
+        self.bias = nn.Parameter(torch.empty(n_out)) if bias else None
+        self._fans = (fan_in, fan_out)
+        self.xavier_init = xavier_init
+        self.reset_parameters()
+
+    def reset_parameters(self, generator=None):
+        fan_in, fan_out = self._fans
+        bound = 1.0 / math.sqrt(fan_in) if fan_in > 0 else 0.0
+        wbound = math.sqrt(6.0 / (fan_in + fan_out)) if self.xavier_init else bound
+        _uniform_(self.weight, wbound, generator)
+        if self.bias is not None:
+            _uniform_(self.bias, bound, generator)
+
+    def _params(self, x):
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        return self.weight.to(x.dtype), b
+
+
+class Conv(_Weighted):
+    """torch ``nn.Conv{1,2}d`` on (B, C, *spatial)."""
+
+    def __init__(self, in_chan: int, out_chan: int, kernel_size: IntOrTuple,
+                 ndim: int = 1, stride: IntOrTuple = 1,
+                 padding: Union[str, IntOrTuple] = 0, dilation: IntOrTuple = 1,
+                 groups: int = 1, bias: bool = True, xavier_init: bool = False):
+        kernel = _to_tuple(kernel_size, ndim)
+        rec = math.prod(kernel)
+        self.ndim, self.groups = ndim, groups
+        self.stride = _to_tuple(stride, ndim)
+        self.dilation = _to_tuple(dilation, ndim)
+        self.pad, self.padding = _resolve_padding(padding, kernel, self.dilation)
+        super().__init__((out_chan, in_chan // groups, *kernel), out_chan,
+                         (in_chan // groups) * rec, out_chan * rec, bias, xavier_init)
+
+    def forward(self, x):
+        w, b = self._params(x)
+        if self.pad is not None:
+            x = F.pad(x, self.pad)
+        return _CONV[self.ndim](x, w, b, self.stride, self.padding,
+                                self.dilation, self.groups)
+
+
+class ConvTranspose(_Weighted):
+    """torch ``nn.ConvTranspose{1,2}d`` on (B, C, *spatial)."""
+
+    def __init__(self, in_chan: int, out_chan: int, kernel_size: IntOrTuple,
+                 ndim: int = 1, stride: IntOrTuple = 1, padding: IntOrTuple = 0,
+                 output_padding: IntOrTuple = 0, dilation: IntOrTuple = 1,
+                 groups: int = 1, bias: bool = True, xavier_init: bool = False):
+        kernel = _to_tuple(kernel_size, ndim)
+        rec = math.prod(kernel)
+        self.ndim, self.groups = ndim, groups
+        self.stride = _to_tuple(stride, ndim)
+        self.padding = _to_tuple(padding, ndim)
+        self.output_padding = _to_tuple(output_padding, ndim)
+        self.dilation = _to_tuple(dilation, ndim)
+        super().__init__((in_chan, out_chan // groups, *kernel), out_chan,
+                         (out_chan // groups) * rec, in_chan * rec, bias, xavier_init)
+
+    def forward(self, x):
+        w, b = self._params(x)
+        return _CONV_T[self.ndim](x, w, b, self.stride, self.padding,
+                                  self.output_padding, self.groups, self.dilation)
+
+
+class Linear(_Weighted):
+    """torch ``nn.Linear``; weight (O, I)."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True):
+        super().__init__((out_features, in_features), out_features, in_features,
+                         out_features, bias, False)
+
+    def forward(self, x):
+        w, b = self._params(x)
+        return F.linear(x, w, b)
+
+
+def interpolate_nearest(x: torch.Tensor, size: Sequence[int]) -> torch.Tensor:
+    """torch ``F.interpolate(mode="nearest")``: src = floor(dst * in/out)."""
+    size = tuple(int(s) for s in size)
+    if tuple(x.shape[2:]) == size:
+        return x
+    return F.interpolate(x, size=size, mode="nearest")
+
+
+def adaptive_avg_pool(x: torch.Tensor, output_size: Sequence[int]) -> torch.Tensor:
+    """torch ``F.adaptive_avg_pool{1,2}d`` on (B, C, *spatial)."""
+    output_size = tuple(int(s) for s in output_size)
+    if tuple(x.shape[2:]) == output_size:
+        return x
+    pool = F.adaptive_avg_pool1d if x.dim() == 3 else F.adaptive_avg_pool2d
+    return pool(x, output_size)
+
+
+def unfold_1d(x: torch.Tensor, kernel_size: int, stride: int = 1) -> torch.Tensor:
+    """``nn.Unfold((k, 1), stride=(s, 1))`` on (B, C, T): (B, C·k, L) with
+    rows ordered ``c*k + tap`` (the DualPathRNN windowing)."""
+    B, C, _ = x.shape
+    y = x.unfold(2, kernel_size, stride)  # (B, C, L, k)
+    return y.permute(0, 1, 3, 2).reshape(B, C * kernel_size, -1)

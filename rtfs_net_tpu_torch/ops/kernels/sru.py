@@ -1,0 +1,101 @@
+"""One bidirectional SRU layer's recurrence: the CUDA kernel
+``csrc/sru_stack_layer.cu`` and its plain PyTorch version.
+
+Port of ``rtfs_net_tpu/ops/pallas/sru_kernel_v3.py:sru_stack_layer``, same
+arguments and layout: u (L, k·O, rows) with chunk-major columns
+``c*O + d*H + h``; skip (L, O, rows) when k == 3 (unused when k == 4,
+where u's 4th chunk is the highway); v, b the layer's (2·O,) gate vectors.
+Returns (L, O, rows) in u's dtype; the carry and the math are float32.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import build
+
+SOURCE = "sru_stack_layer.cu"
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# launches of the CUDA kernel since the last reset (set it to 0 to reset)
+launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _fn():
+    fn = build.load(SOURCE).rtfs_sru_stack_layer
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(u, skip, v, b, H: int, k: int, ndir: int):
+    if k not in (3, 4) or ndir not in (1, 2) or H <= 0:
+        raise ValueError(f"unsupported k={k}, ndir={ndir}, H={H}")
+    if u.dim() != 3:
+        raise ValueError(f"u must be (L, k*O, rows), got {tuple(u.shape)}")
+    L, KO, rows = u.shape
+    O = H * ndir
+    if KO != k * O:
+        raise ValueError(f"u has {KO} channels, want k*O = {k * O}")
+    if u.dtype not in _DTYPES:
+        raise TypeError(f"u must be float32 or bfloat16, got {u.dtype}")
+    if not u.is_contiguous():
+        raise ValueError("u must be contiguous")
+    if k == 3:
+        if skip is None or tuple(skip.shape) != (L, O, rows):
+            raise ValueError(f"k == 3 needs skip of shape {(L, O, rows)}")
+        if skip.dtype != u.dtype or skip.device != u.device or not skip.is_contiguous():
+            raise ValueError("skip must be contiguous, on u's device, in u's dtype")
+    for name, g in (("v", v), ("b", b)):
+        if tuple(g.shape) != (2 * O,) or g.device != u.device:
+            raise ValueError(f"{name} must be ({2 * O},) on u's device")
+    return L, O, rows
+
+
+def sru_stack_layer(u, skip, v, b, *, H: int, k: int, ndir: int):
+    """CUDA tensors launch the kernel; CPU tensors take the plain version."""
+    global launches
+    L, O, rows = _check(u, skip, v, b, H, k, ndir)
+    if u.device.type == "cpu":
+        return sru_stack_layer_ref(u, skip, v, b, H=H, k=k, ndir=ndir)
+    if u.device.type != "cuda":
+        raise ValueError(f"sru_stack_layer runs on cuda or cpu, not {u.device}")
+    fn = _fn()
+    out = torch.empty((L, O, rows), dtype=u.dtype, device=u.device)
+    v = v.float().contiguous()
+    b = b.float().contiguous()
+    with torch.cuda.device(u.device):
+        err = fn(u.data_ptr(), skip.data_ptr() if k == 3 else None,
+                 v.data_ptr(), b.data_ptr(), out.data_ptr(),
+                 L, rows, H, k, ndir, _DTYPES[u.dtype],
+                 torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"sru_stack_layer kernel launch failed: CUDA error {err}")
+    launches += 1
+    return out
+
+
+def sru_stack_layer_ref(u, skip, v, b, *, H: int, k: int, ndir: int):
+    """Plain PyTorch version: a Python loop over L per direction, float32
+    carry and math, output cast to u's dtype."""
+    L, KO, rows = u.shape
+    O = H * ndir
+    uf = u.float().reshape(L, k, O, rows)
+    u0, u1, u2 = uf[:, 0], uf[:, 1], uf[:, 2]
+    sk = uf[:, 3] if k == 4 else skip.float()
+    v, b = v.float()[:, None], b.float()[:, None]
+    out = torch.empty((L, O, rows), dtype=torch.float32, device=u.device)
+    for d in range(ndir):
+        s = slice(d * H, (d + 1) * H)
+        vf, vr = v[:O][s], v[O:][s]
+        bf, br = b[:O][s], b[O:][s]
+        c = torch.zeros((H, rows), dtype=torch.float32, device=u.device)
+        for t in (range(L - 1, -1, -1) if d == 1 else range(L)):
+            f = torch.sigmoid(u1[t, s] + vf * c + bf)
+            r = torch.sigmoid(u2[t, s] + vr * c + br)
+            c = f * c + (1.0 - f) * u0[t, s]
+            out[t, s] = r * c + (1.0 - r) * sk[t, s]
+    return out.to(u.dtype)

@@ -1,0 +1,95 @@
+"""Multi-layer (bi)directional SRU, sru==2.6.0 v2 cell semantics
+(reference ``src/models/layers/rnn_layers.py:99``):
+
+    f_t = σ(U¹_t + v_f⊙c_{t−1} + b_f),  r_t = σ(U²_t + v_r⊙c_{t−1} + b_r)
+    c_t = f_t⊙c_{t−1} + (1−f_t)⊙U⁰_t,   h_t = r_t⊙c_t + (1−r_t)⊙skip_t
+
+with a 4-chunk projection (the 4th chunk is the highway input) when
+d_in != out, else 3 chunks and the raw input as highway.
+
+Every layer runs in the (L, channels, rows) orientation the recurrence
+kernel takes (``ops/kernels/sru.py``): the projections emit (L, k·O, rows)
+directly and each layer's (L, O, rows) output feeds the next projection
+as is. Parameters keep the reference's layout, ``rnn_lst.{l}.weight``
+(d_in, ndir·k·H) with columns [dir][k][h]; they are reordered to the
+kernel's chunk-major [k][dir][h] once per call.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+import torch.nn.functional as F
+
+from .conv import unfold_1d
+from .kernels.sru import sru_stack_layer
+
+
+class SRUCell(nn.Module):
+    """One layer's parameters under the reference names."""
+
+    def __init__(self, input_size: int, hidden_size: int, bidirectional: bool):
+        super().__init__()
+        self.ndir = 2 if bidirectional else 1
+        self.hidden_size = hidden_size
+        out = hidden_size * self.ndir
+        self.k = 4 if input_size != out else 3
+        self.weight = nn.Parameter(torch.empty(input_size, self.ndir * self.k * hidden_size))
+        self.weight_c = nn.Parameter(torch.zeros(2 * out))
+        self.bias = nn.Parameter(torch.zeros(2 * out))
+        self.reset_parameters()
+
+    def reset_parameters(self, generator=None):
+        # sru init: U(±sqrt(3/d_in)); gate vectors zero
+        bound = math.sqrt(3.0 / self.weight.shape[0])
+        with torch.no_grad():
+            self.weight.uniform_(-bound, bound, generator=generator)
+            self.weight_c.zero_()
+            self.bias.zero_()
+
+    def projection(self, dtype) -> torch.Tensor:
+        """(k·O, d_in) with rows ``c*O + d*H + h`` (the kernel's u order)."""
+        d_in = self.weight.shape[0]
+        w = self.weight.view(d_in, self.ndir, self.k, self.hidden_size)
+        return w.permute(2, 1, 3, 0).reshape(-1, d_in).to(dtype)
+
+    def recur(self, u, skip):
+        return sru_stack_layer(u, skip, self.weight_c, self.bias,
+                               H=self.hidden_size, k=self.k, ndir=self.ndir)
+
+
+class SRU(nn.Module):
+    def __init__(self, input_size: int, hidden_size: int, num_layers: int = 2,
+                 bidirectional: bool = False):
+        super().__init__()
+        out = hidden_size * (2 if bidirectional else 1)
+        self.rnn_lst = nn.ModuleList(
+            SRUCell(input_size if l == 0 else out, hidden_size, bidirectional)
+            for l in range(num_layers))
+
+    def forward(self, x, window=None):
+        """x: (L, rows, input_size) -> (L, rows, O).
+
+        With ``window=(k, s)``, x is the pre-unfold (rows, C, T) tensor with
+        C·k == input_size: layer 0's projection over the unfolded windows is
+        one k-wide stride-s conv, so the k× larger unfolded tensor is built
+        only when layer 0 needs it as its highway input (k == 3)."""
+        cell = self.rnn_lst[0]
+        w = cell.projection(x.dtype)
+        if window is not None:
+            k_w, s_w = window
+            rows, C, _ = x.shape
+            u = F.conv1d(x, w.view(w.shape[0], C, k_w), stride=s_w)  # (rows, kO, L)
+            u = u.permute(2, 1, 0).contiguous()
+            skip = (unfold_1d(x, k_w, s_w).permute(2, 1, 0).contiguous()
+                    if cell.k == 3 else None)
+        else:
+            xc = x.permute(0, 2, 1)  # (L, d_in, rows)
+            u = torch.matmul(w, xc)
+            skip = xc.contiguous() if cell.k == 3 else None
+        h = cell.recur(u, skip)
+        for cell in self.rnn_lst[1:]:
+            u = torch.matmul(cell.projection(h.dtype), h)
+            h = cell.recur(u, h if cell.k == 3 else None)
+        return h.permute(0, 2, 1)

@@ -1,0 +1,267 @@
+"""JAX-package variables -> the port's ``state_dict``.
+
+The inverse of ``rtfs_net_tpu/utils/avnet_convert.py:convert_avnet`` for
+the modules the port has: it reads the JAX model's variables, given as
+nested dicts of numpy arrays (``params`` and ``batch_stats``), and writes
+them under the reference torch names the port uses. Besides renaming:
+
+* SRU weight columns go from the JAX [k][dir][h] order back to the
+  reference's [dir][k][h];
+* MHSA2D's fused qkv conv, stacked PReLU slopes and LN4D affines are
+  unpacked into the per-head ``Queries/Keys/Values.{h}`` modules;
+* BatchNorm statistics become ``running_mean``/``running_var``.
+
+Each mapper takes (reader, out, src, path): ``src`` is the torch key
+prefix written, ``path`` the JAX variable path read.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+Path = Tuple[str, ...]
+
+
+class Reader:
+    """Path lookups into JAX variables ({"params": ..., "batch_stats": ...})."""
+
+    def __init__(self, variables):
+        self.trees = {"params": variables.get("params", {}),
+                      "batch_stats": variables.get("batch_stats", {})}
+
+    def node(self, path: Path, collection: str = "params") -> Optional[Any]:
+        node = self.trees[collection]
+        for p in path:
+            if not hasattr(node, "keys") or p not in node:
+                return None
+            node = node[p]
+        return node
+
+    def get(self, path: Path, collection: str = "params") -> np.ndarray:
+        value = self.node(path, collection)
+        if value is None:
+            raise KeyError(f"JAX variable {collection}/{'/'.join(path)} is missing")
+        return np.array(value)
+
+
+def _k(src: str, name: str) -> str:
+    return f"{src}.{name}" if src else name
+
+
+def _leaf(r: Reader, out, src: str, path: Path):
+    """A conv/linear: ``weight`` and, when present, ``bias``."""
+    node = r.node(path)
+    out[_k(src, "weight")] = r.get(path + ("weight",))
+    if "bias" in node:
+        out[_k(src, "bias")] = r.get(path + ("bias",))
+
+
+def norm(r: Reader, out, src: str, path: Path):
+    """gLN, LN4D or BatchNorm at ``path``, told apart by its variables;
+    an Identity has none and writes nothing."""
+    node = r.node(path)
+    if node is None:
+        return
+    scale, bias = r.get(path + ("scale",)), r.get(path + ("bias",))
+    if r.node(path + ("mean",), "batch_stats") is not None:
+        out[_k(src, "weight")], out[_k(src, "bias")] = scale, bias
+        out[_k(src, "running_mean")] = r.get(path + ("mean",), "batch_stats")
+        out[_k(src, "running_var")] = r.get(path + ("var",), "batch_stats")
+        out[_k(src, "num_batches_tracked")] = np.array(0, np.int64)
+    elif scale.ndim == 4:
+        out[_k(src, "gamma")], out[_k(src, "beta")] = scale, bias
+    else:
+        out[_k(src, "norm.weight")], out[_k(src, "norm.bias")] = scale, bias
+
+
+def _alpha(r: Reader, out, key: str, path: Path):
+    if r.node(path) is not None:
+        out[key] = r.get(path + ("alpha",))
+
+
+def conv_norm_act(r: Reader, out, src: str, path: Path):
+    base = _k(src, "full_layer")
+    norm(r, out, f"{base}.0", path + ("pre_norm",))
+    _alpha(r, out, f"{base}.1.weight", path + ("pre_act",))
+    if r.node(path + ("conv",)) is not None:
+        _leaf(r, out, f"{base}.2", path + ("conv",))
+    norm(r, out, f"{base}.3", path + ("norm",))
+    _alpha(r, out, f"{base}.4.weight", path + ("act",))
+
+
+def conv_act_norm(r: Reader, out, src: str, path: Path):
+    if r.node(path + ("conv",)) is not None:
+        _leaf(r, out, _k(src, "conv"), path + ("conv",))
+    _alpha(r, out, _k(src, "act.weight"), path + ("act",))
+    norm(r, out, _k(src, "norm"), path + ("norm",))
+
+
+def injection_multi_sum(r: Reader, out, src: str, path: Path):
+    for name in ("local_embedding", "global_embedding", "global_gate"):
+        conv_norm_act(r, out, _k(src, name), path + (name,))
+
+
+def sru(r: Reader, out, src: str, path: Path, hid_chan: int, bidirectional: bool):
+    """SRU layers: weight columns [k][dir][h] -> the reference's [dir][k][h]."""
+    ndir = 2 if bidirectional else 1
+    l = 0
+    while r.node(path + (f"weight_l{l}",)) is not None:
+        w = r.get(path + (f"weight_l{l}",))
+        d_in, cols = w.shape
+        k = cols // (ndir * hid_chan)
+        pre = _k(src, f"rnn_lst.{l}")
+        out[f"{pre}.weight"] = (w.reshape(d_in, k, ndir, hid_chan)
+                                .transpose(0, 2, 1, 3).reshape(d_in, cols))
+        out[f"{pre}.weight_c"] = r.get(path + (f"weight_c_l{l}",))
+        out[f"{pre}.bias"] = r.get(path + (f"bias_l{l}",))
+        l += 1
+
+
+def dual_path_rnn(r: Reader, out, src: str, path: Path, hid_chan: int,
+                  bidirectional: bool = True):
+    norm(r, out, _k(src, "norm"), path + ("norm",))
+    sru(r, out, _k(src, "rnn"), path + ("rnn",), hid_chan, bidirectional)
+    _leaf(r, out, _k(src, "linear"), path + ("linear",))
+
+
+def mhsa(r: Reader, out, src: str, path: Path):
+    for name in ("norm1", "norm2"):
+        out[_k(src, f"{name}.weight")] = r.get(path + (name, "scale"))
+        out[_k(src, f"{name}.bias")] = r.get(path + (name, "bias"))
+    att = path + ("attention",)
+    out[_k(src, "attention.in_proj_weight")] = r.get(att + ("in_proj_weight",))
+    out[_k(src, "attention.in_proj_bias")] = r.get(att + ("in_proj_bias",))
+    _leaf(r, out, _k(src, "attention.out_proj"), att + ("out_proj",))
+
+
+def mhsa2d(r: Reader, out, src: str, path: Path):
+    """Unpack the fused qkv conv ([all Q heads][all K][all V] along its
+    out-channels) and the (H, ...) stacked slopes and LN4D affines."""
+    n_head = r.get(path + ("q_alpha",)).shape[0]
+    w = r.get(path + ("qkv_conv", "weight"))
+    b = r.get(path + ("qkv_conv", "bias"))
+    offset = 0
+    for group, name in (("Queries", "q"), ("Keys", "k"), ("Values", "v")):
+        scale = r.get(path + (f"{name}_scale",))  # (H, chan, 1, F)
+        alpha = r.get(path + (f"{name}_alpha",))
+        beta = r.get(path + (f"{name}_bias",))
+        chan = scale.shape[1]
+        for h in range(n_head):
+            pre = _k(src, f"{group}.{h}")
+            out[f"{pre}.conv.weight"] = w[offset:offset + chan]
+            out[f"{pre}.conv.bias"] = b[offset:offset + chan]
+            out[f"{pre}.act.weight"] = alpha[h:h + 1]
+            out[f"{pre}.norm.gamma"] = scale[h][None]
+            out[f"{pre}.norm.beta"] = beta[h][None]
+            offset += chan
+    conv_act_norm(r, out, _k(src, "attn_concat_proj"), path + ("attn_concat_proj",))
+
+
+def ffn(r: Reader, out, src: str, path: Path):
+    for i, name in enumerate(("encoder", "refiner", "decoder")):
+        conv_norm_act(r, out, _k(src, name), path + (f"ConvNormAct_{i}",))
+
+
+def global_attention(r: Reader, out, src: str, path: Path):
+    mhsa(r, out, _k(src, "MHSA"), path + ("MHSA",))
+    ffn(r, out, _k(src, "FFN"), path + ("FFN",))
+
+
+def attn_fusion_cell(r: Reader, out, src: str, path: Path):
+    for name in ("key_embed", "value_embed", "attention_embed", "resize"):
+        conv_norm_act(r, out, _k(src, name), path + (name,))
+
+
+def _global_layer(r: Reader, out, src: str, path: Path, conf: dict):
+    lt = conf["layer_type"]
+    if lt == "DualPathRNN":
+        dual_path_rnn(r, out, src, path, conf["hid_chan"], conf.get("bidirectional", True))
+    elif lt == "MultiHeadSelfAttention2D":
+        mhsa2d(r, out, src, path)
+    elif lt == "GlobalAttention":
+        global_attention(r, out, src, path)
+    else:
+        raise NotImplementedError(f"layer_type {lt!r} is not ported yet")
+
+
+def tdanet_block(r: Reader, out, src: str, path: Path, conf: dict):
+    depth = conf.get("upsampling_depth", 4)
+    conv_norm_act(r, out, _k(src, "gateway"), path + ("gateway",))
+    conv_norm_act(r, out, _k(src, "projection"), path + ("projection",))
+    for i in range(depth):
+        conv_norm_act(r, out, _k(src, f"downsample_layers.{i}"), path + (f"down{i}",))
+        injection_multi_sum(r, out, _k(src, f"fusion_layers.{i}"), path + (f"fuse{i}",))
+    for i in range(depth - 1):
+        injection_multi_sum(r, out, _k(src, f"concat_layers.{i}"), path + (f"concat{i}",))
+    for j, lconf in enumerate((conf.get("layers") or {}).values()):
+        _global_layer(r, out, _k(src, f"globalatt.{j}"), path + (f"globalatt{j}",), lconf)
+    conv_norm_act(r, out, _k(src, "residual_conv"), path + ("residual_conv",))
+
+
+def separator(r: Reader, out, src: str, path: Path, params: dict, which: str):
+    net = params.get(f"{which}_net")
+    if not net:
+        return
+    if net != "TDANet":
+        raise NotImplementedError(f"{which}_net {net!r} is not ported yet")
+    if params.get("shared", False):
+        tdanet_block(r, out, _k(src, "blocks"), path + ("blocks",), params)
+    else:
+        for i in range(params.get("repeats", 1)):
+            tdanet_block(r, out, _k(src, f"blocks.{i}"), path + (f"blocks_{i}",), params)
+
+
+def fusion(r: Reader, out, src: str, path: Path, fusion_params: dict, repeats: int):
+    if repeats <= 0:
+        return
+    ftype = fusion_params.get("fusion_type", "ConcatFusion")
+    if ftype != "ATTNFusion":
+        raise NotImplementedError(f"fusion_type {ftype!r} is not ported yet")
+
+    def one(fsrc, fpath):
+        attn_fusion_cell(r, out, _k(fsrc, "audio_lstm"), fpath + ("audio_attn",))
+        if r.node(fpath + ("video_attn",)) is not None:
+            attn_fusion_cell(r, out, _k(fsrc, "video_lstm"), fpath + ("video_attn",))
+
+    if fusion_params.get("fusion_shared", False):
+        one(_k(src, "fusion_module"), path + ("fusion_module",))
+    else:
+        for i in range(repeats):
+            one(_k(src, f"fusion_module.{i}"), path + (f"fusion_module_{i}",))
+
+
+def state_dict_from_jax(variables, audionet_conf: dict) -> Dict[str, torch.Tensor]:
+    """JAX AVNet variables + its config (the YAML file or its ``audionet``
+    section) -> the port AVNet's ``state_dict``."""
+    conf = audionet_conf.get("audionet", audionet_conf)
+    r, out = Reader(variables), {}
+    if conf["enc_dec_params"]["encoder_type"] != "STFTEncoder":
+        raise NotImplementedError("only the STFTEncoder is ported yet")
+    conv_norm_act(r, out, "encoder.conv", ("encoder", "conv"))
+    conv_norm_act(r, out, "audio_bottleneck", ("audio_bottleneck",))
+    conv_norm_act(r, out, "video_bottleneck", ("video_bottleneck",))
+    ap, vp = conf["audio_params"], conf.get("video_params") or {}
+    rm = ("refinement_module",)
+    separator(r, out, "refinement_module.audio_net", rm + ("audio_net",), ap, "audio")
+    separator(r, out, "refinement_module.video_net", rm + ("video_net",), vp, "video")
+    fusion(r, out, "refinement_module.crossmodal_fusion", rm + ("crossmodal_fusion",),
+           conf.get("fusion_params") or {}, vp.get("repeats", 0))
+    out["mask_generator.mask_generator.0.weight"] = r.get(("mask_generator", "prelu", "alpha"))
+    conv_norm_act(r, out, "mask_generator.mask_generator.1", ("mask_generator", "mask_conv"))
+    if r.node(("decoder", "decoder")) is not None:
+        _leaf(r, out, "decoder.decoder", ("decoder", "decoder"))
+    return to_tensors(out)
+
+
+def to_tensors(arrays: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.array(v)) for k, v in arrays.items()}
+
+
+def module_state_dict(mapper, variables, *args) -> Dict[str, torch.Tensor]:
+    """One module's state_dict: ``mapper`` (a function above) applied at the
+    root of that module's own JAX variables."""
+    out = {}
+    mapper(Reader(variables), out, "", (), *args)
+    return to_tensors(out)

@@ -1,0 +1,26 @@
+"""Standalone inference helper (reference ``src/utils/separator.py``):
+``separate()`` runs the model and rescales the output's energy to the
+input's."""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..models import resolve_device
+
+
+def separate(model, wav, mouth_emb=None, *, device="cuda", dtype=torch.float32):
+    """Separate a (B, L) mixture, optionally conditioned on a (B, C, T_v)
+    lip embedding; returns (B, n_src, L) float32 on ``device``, or numpy if
+    ``wav`` was numpy. The model's forward runs in ``dtype`` (float32 or
+    bfloat16) without autograd; the output is rescaled so that
+    sum|out| == sum|wav| over the whole batch (reference ``separator.py:55``).
+    """
+    device = resolve_device(device)
+    was_numpy = isinstance(wav, np.ndarray)
+    x = torch.as_tensor(wav, device=device, dtype=torch.float32)
+    emb = None if mouth_emb is None else torch.as_tensor(mouth_emb, device=device).to(dtype)
+    with torch.inference_mode():
+        out = model(x.to(dtype), emb).float()
+        out = out * (x.abs().sum() / (out.abs().sum() + 1e-8))
+    return out.cpu().numpy() if was_numpy else out
