@@ -5,8 +5,9 @@ parameter names follow the reference torch implementation, so a port
 ``state_dict`` is what ``rtfs_net_tpu.utils.avnet_convert.convert_avnet``
 consumes and reference checkpoints load with ``load_state_dict``.
 
-The hot recurrence runs as a hand-written CUDA kernel
-(``csrc/sru_stack_layer.cu``), built by ``nvcc`` at first use; everything
+The hot recurrence runs as hand-written CUDA kernels
+(``csrc/sru_stack_layer.cu`` for inference, ``csrc/sru_train.cu``, forward
+and backward, under autograd), built by ``nvcc`` at first use; everything
 else is plain PyTorch. Entry points run on ``cuda`` unless the caller
 passes ``device="cpu"``.
 """

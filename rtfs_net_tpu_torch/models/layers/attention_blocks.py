@@ -1,8 +1,9 @@
 """Attention blocks (reference ``src/models/layers/attention.py``).
 
 Sequences are short (T <= 251 after the STFT hop), so attention is a
-plain matmul -> softmax -> matmul. Dropout and DropPath are identities in
-the serving forward and are left out.
+plain matmul -> softmax -> matmul. In training mode dropout acts where the
+JAX package has it: on the attention weights, on the MHA output, and as
+DropPath on the MHSA residual (``ops/dropout.py`` draws the masks).
 """
 from __future__ import annotations
 
@@ -14,7 +15,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from ...ops.conv import Linear
+from ...ops.conv import DropPath, Linear
+from ...ops.dropout import dropout
 from ...ops.normalizations import LayerNorm
 from .conv_blocks import ConvActNorm, FeedForwardNetwork
 
@@ -36,9 +38,10 @@ class MultiheadAttention(nn.Module):
     """torch ``nn.MultiheadAttention`` parameters and math (packed qkv
     ``in_proj``, ``out_proj``), written out as matmuls."""
 
-    def __init__(self, embed_dim: int, num_heads: int, batch_first: bool = True):
+    def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0,
+                 batch_first: bool = True):
         super().__init__()
-        self.num_heads, self.batch_first = num_heads, batch_first
+        self.num_heads, self.batch_first, self.dropout = num_heads, batch_first, dropout
         self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dim, embed_dim))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim))
         self.out_proj = Linear(embed_dim, embed_dim)
@@ -61,6 +64,7 @@ class MultiheadAttention(nn.Module):
                                          self.in_proj_bias.to(seq.dtype))
         q, k, v = (t.reshape(B, L, nh, hd).transpose(1, 2) for t in qkv.chunk(3, -1))
         attn = torch.softmax(q @ k.transpose(-2, -1) / math.sqrt(hd), dim=-1)
+        attn = dropout(attn, self.dropout, self.training)
         out = self.out_proj((attn @ v).transpose(1, 2).reshape(B, L, E))
         return out if self.batch_first else out.transpose(0, 1)
 
@@ -73,10 +77,11 @@ class MultiHeadSelfAttention(nn.Module):
     def __init__(self, in_chan: int, n_head: int = 8, dropout: float = 0.1,
                  positional_encoding: bool = True, batch_first: bool = True):
         super().__init__()
-        self.batch_first, self.pos_enc = batch_first, positional_encoding
+        self.batch_first, self.pos_enc, self.dropout = batch_first, positional_encoding, dropout
         self.norm1 = LayerNorm(in_chan)
-        self.attention = MultiheadAttention(in_chan, n_head, batch_first)
+        self.attention = MultiheadAttention(in_chan, n_head, dropout, batch_first)
         self.norm2 = LayerNorm(in_chan)
+        self.drop_path = DropPath(dropout)
 
     def forward(self, x):
         y = x.transpose(1, 2) if self.batch_first else x
@@ -84,10 +89,10 @@ class MultiHeadSelfAttention(nn.Module):
         if self.pos_enc:
             pe = positional_encoding(y.shape[1], y.shape[2])
             y = y + torch.from_numpy(pe).to(device=y.device, dtype=y.dtype)
-        y = self.norm2(self.attention(y) + y)
+        y = self.norm2(dropout(self.attention(y), self.dropout, self.training) + y)
         if self.batch_first:
             y = y.transpose(1, 2)
-        return y + x
+        return self.drop_path(y) + x
 
 
 class MultiHeadSelfAttention2D(nn.Module):

@@ -7,7 +7,7 @@ from typing import Any, Optional, Union
 from torch import nn
 
 from ...ops import activations, normalizations
-from ...ops.conv import Conv
+from ...ops.conv import Conv, DropPath
 
 
 def make_norm(norm_type, chan: int, n_freqs: int = -1) -> nn.Module:
@@ -76,8 +76,8 @@ class ConvActNorm(nn.Module):
 
 class FeedForwardNetwork(nn.Module):
     """1x1 expand -> depthwise refine -> 1x1 contract, residual
-    (``conv_layers.py:218-259``). Dropout/DropPath are identities in the
-    serving forward and are left out."""
+    (``conv_layers.py:218-259``), with DropPath after the refiner and
+    after the decoder (one module, an independent mask at each call)."""
 
     def __init__(self, in_chan: int, hid_chan: int, kernel_size: int = 5,
                  norm_type: Any = "gLN", act_type: Any = "ReLU",
@@ -89,6 +89,8 @@ class FeedForwardNetwork(nn.Module):
                                    act_type=act_type, is2d=is2d)
         self.decoder = ConvNormAct(hid_chan, in_chan, 1, norm_type=norm_type,
                                    bias=False, is2d=is2d)
+        self.drop_path = DropPath(dropout)
 
     def forward(self, x):
-        return self.decoder(self.refiner(self.encoder(x))) + x
+        y = self.drop_path(self.refiner(self.encoder(x)))
+        return self.drop_path(self.decoder(y)) + x

@@ -16,6 +16,8 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
+from .dropout import keep_mask
+
 IntOrTuple = Union[int, Sequence[int]]
 
 _CONV = {1: F.conv1d, 2: F.conv2d}
@@ -159,3 +161,20 @@ def unfold_1d(x: torch.Tensor, kernel_size: int, stride: int = 1) -> torch.Tenso
     B, C, _ = x.shape
     y = x.unfold(2, kernel_size, stride)  # (B, C, L, k)
     return y.permute(0, 1, 3, 2).reshape(B, C * kernel_size, -1)
+
+
+class DropPath(nn.Module):
+    """Per-sample stochastic depth (``rtfs_net_tpu/ops/conv.py:DropPath``):
+    in training mode, zero a whole sample with probability p and scale the
+    kept samples by 1/(1-p); the identity in eval mode."""
+
+    def __init__(self, p: float = 0.0):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x):
+        if not self.training or self.p == 0.0:
+            return x
+        keep = 1.0 - self.p
+        mask = keep_mask((x.shape[0],) + (1,) * (x.dim() - 1), keep, x.device)
+        return torch.where(mask, x / keep, torch.zeros_like(x))

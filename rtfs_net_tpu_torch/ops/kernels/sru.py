@@ -56,8 +56,14 @@ def _check(u, skip, v, b, H: int, k: int, ndir: int):
 
 
 def sru_stack_layer(u, skip, v, b, *, H: int, k: int, ndir: int):
-    """CUDA tensors launch the kernel; CPU tensors take the plain version."""
+    """CUDA tensors launch the kernel; CPU tensors take the plain version.
+    Inference only: it raises when autograd would need its backward (the
+    differentiable layer is ``sru_train.sru_layer_train``)."""
     global launches
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in (u, skip, v, b)):
+        raise RuntimeError("sru_stack_layer has no backward; a grad-enabled call "
+                           "goes through sru_train.sru_layer_train")
     L, O, rows = _check(u, skip, v, b, H, k, ndir)
     if u.device.type == "cpu":
         return sru_stack_layer_ref(u, skip, v, b, H=H, k=k, ndir=ndir)

@@ -8,7 +8,8 @@ with a 4-chunk projection (the 4th chunk is the highway input) when
 d_in != out, else 3 chunks and the raw input as highway.
 
 Every layer runs in the (L, channels, rows) orientation the recurrence
-kernel takes (``ops/kernels/sru.py``): the projections emit (L, k·O, rows)
+kernels take (``ops/kernels/sru.py`` for inference, ``sru_train.py``
+when autograd records): the projections emit (L, k·O, rows)
 directly and each layer's (L, O, rows) output feeds the next projection
 as is. Parameters keep the reference's layout, ``rnn_lst.{l}.weight``
 (d_in, ndir·k·H) with columns [dir][k][h]; they are reordered to the
@@ -24,6 +25,7 @@ import torch.nn.functional as F
 
 from .conv import unfold_1d
 from .kernels.sru import sru_stack_layer
+from .kernels.sru_train import sru_layer_train
 
 
 class SRUCell(nn.Module):
@@ -55,8 +57,14 @@ class SRUCell(nn.Module):
         return w.permute(2, 1, 3, 0).reshape(-1, d_in).to(dtype)
 
     def recur(self, u, skip):
-        return sru_stack_layer(u, skip, self.weight_c, self.bias,
-                               H=self.hidden_size, k=self.k, ndir=self.ndir)
+        """The layer's recurrence: the training kernel K2 when autograd
+        records, else the inference kernel K1."""
+        args = (u, skip, self.weight_c, self.bias)
+        kernel = (sru_layer_train
+                  if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                                     for t in args)
+                  else sru_stack_layer)
+        return kernel(*args, H=self.hidden_size, k=self.k, ndir=self.ndir)
 
 
 class SRU(nn.Module):

@@ -1,0 +1,109 @@
+"""Training system core (``rtfs_net_tpu/system/core.py``; reference
+``src/system/core.py``, the Lightning ``System``).
+
+``System`` owns the model, a ``torch.optim`` optimizer and the losses and
+runs one step at a time on the model's device:
+
+* ``train_step``: forward in training mode (dropout, DropPath, BatchNorm
+  batch statistics, checkpointed TDANet blocks) with the activations in
+  ``compute_dtype``, the train loss in float32, the gradients (averaged
+  over ``accum_steps`` sequential microbatches), a global-norm clip, and
+  the optimizer's update;
+* ``val_step``: the eval-mode forward and the val loss, without autograd.
+
+Lip embeddings arrive precomputed, as in the JAX package without a video
+model; ``video_model``, ``train_video_model`` and ``online_mix`` are not
+ported yet and raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional
+
+import torch
+
+from ..ops.dropout import use_generator
+
+
+class System:
+    """loss_func routing matches the reference (``train.py:98-101``):
+    ``{"train": PIT neg-SNR, "val": PIT neg-SI-SDR}``."""
+
+    def __init__(self, model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+                 loss_func: Dict[str, Callable], grad_clip: Optional[float] = 5.0,
+                 compute_dtype: Optional[torch.dtype] = None, accum_steps: int = 1,
+                 video_model=None, train_video_model: bool = False,
+                 online_mix: bool = False):
+        if video_model is not None or train_video_model:
+            raise NotImplementedError("System with a video model is not ported yet")
+        if online_mix:
+            raise NotImplementedError("System(online_mix=True) is not ported yet")
+        self.model = model
+        self.optimizer = optimizer
+        self.loss_func = loss_func
+        self.grad_clip = grad_clip
+        # mixed precision: parameters, gradients and the loss stay float32;
+        # the modules follow the input's dtype
+        self.compute_dtype = compute_dtype
+        self.accum_steps = int(accum_steps)
+
+    def _forward(self, mix, mouths):
+        if self.compute_dtype is not None:
+            mix = mix.to(self.compute_dtype)
+            mouths = None if mouths is None else mouths.to(self.compute_dtype)
+        return self.model(mix, mouths).float()
+
+    @staticmethod
+    def _targets(targets):
+        return targets[:, None, :] if targets.dim() == 2 else targets
+
+    def backward(self, batch, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Training-mode forward and backward of ``batch = (mix, targets,
+        mouths)``: leaves the gradient of the mean train loss in each
+        parameter's ``.grad`` (zeros for a parameter the loss does not
+        reach, as JAX's grads have) and returns that loss, detached.
+
+        With ``accum_steps`` = A the batch runs as A sequential
+        microbatches of B/A and the loss and gradients are their means
+        (BatchNorm statistics move once per microbatch). Dropout masks are
+        drawn from ``generator``, which must lie on the model's device."""
+        mix, targets, mouths = batch
+        targets = self._targets(targets)
+        A = self.accum_steps
+        B = mix.shape[0]
+        if B % A:
+            raise ValueError(f"batch {B} not divisible by accum_steps {A}")
+        self.model.train()
+        self.optimizer.zero_grad(set_to_none=True)
+        total = torch.zeros((), device=mix.device)
+        with use_generator(generator):
+            for m, t, mo in zip(mix.chunk(A), targets.chunk(A),
+                                (None,) * A if mouths is None else mouths.chunk(A)):
+                loss = self.loss_func["train"](self._forward(m, mo), t)
+                (loss / A).backward()
+                total += loss.detach()
+        for p in self.model.parameters():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        return total / A
+
+    def train_step(self, batch, generator: Optional[torch.Generator] = None
+                   ) -> Dict[str, torch.Tensor]:
+        """One optimizer step; returns ``{"loss", "grad_norm"}`` with the
+        gradients' global norm before the clip. The clip scales every
+        gradient by min(1, grad_clip / (norm + 1e-6))."""
+        loss = self.backward(batch, generator)
+        params = list(self.model.parameters())
+        if self.grad_clip:
+            gnorm = torch.nn.utils.clip_grad_norm_(params, self.grad_clip)
+        else:
+            gnorm = torch.linalg.vector_norm(
+                torch.stack([torch.linalg.vector_norm(p.grad) for p in params]))
+        self.optimizer.step()
+        return {"loss": loss, "grad_norm": gnorm.detach()}
+
+    @torch.no_grad()
+    def val_step(self, batch) -> Dict[str, torch.Tensor]:
+        mix, targets, mouths = batch
+        self.model.eval()
+        loss = self.loss_func["val"](self._forward(mix, mouths), self._targets(targets))
+        return {"val_loss": loss}

@@ -255,6 +255,19 @@ def state_dict_from_jax(variables, audionet_conf: dict) -> Dict[str, torch.Tenso
     return to_tensors(out)
 
 
+_BUFFERS = ("running_mean", "running_var", "num_batches_tracked")
+
+
+def grads_from_jax(grads, audionet_conf: dict, batch_stats=None) -> Dict[str, torch.Tensor]:
+    """The gradients of a JAX step (a ``params`` pytree of numpy arrays)
+    under the port's parameter names. Every mapping is a renaming, a
+    permutation or a slice, so it carries gradients as it carries
+    parameters; ``batch_stats`` (the model's) only tells BatchNorms apart."""
+    sd = state_dict_from_jax({"params": grads, "batch_stats": batch_stats or {}},
+                             audionet_conf)
+    return {k: t for k, t in sd.items() if k.rsplit(".", 1)[-1] not in _BUFFERS}
+
+
 def to_tensors(arrays: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     return {k: torch.from_numpy(np.array(v)) for k, v in arrays.items()}
 

@@ -5,14 +5,27 @@ The JAX side is jitted (on the CPU, one compile beats op-by-op dispatch
 by several times at these sizes); its init variables are perturbed so
 that norms, slopes and gates are not at their constant initial values,
 then carried into the port with ``rtfs_net_tpu_torch.utils.convert``.
+Test modules import ``one_torch_thread`` to run their torch code on one
+intra-op thread.
 """
 import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from rtfs_net_tpu_torch.utils.convert import module_state_dict
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: these tensors are tiny, and the test runner's
+    parallel workers would otherwise oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def jax_init(module, rng, *args, **kwargs):

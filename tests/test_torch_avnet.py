@@ -25,7 +25,7 @@ from rtfs_net_tpu_torch.models import build_model
 from rtfs_net_tpu_torch.utils.convert import state_dict_from_jax
 from rtfs_net_tpu_torch.utils.separator import separate
 
-from _torch_port import jax_apply, jax_init
+from _torch_port import jax_apply, jax_init, one_torch_thread  # noqa: F401
 
 TINY = {
     "n_src": 1,

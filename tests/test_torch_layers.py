@@ -18,7 +18,7 @@ from rtfs_net_tpu_torch.models.layers import attention_blocks, fusion_cells, rnn
 from rtfs_net_tpu_torch.models.separators import tdanet
 from rtfs_net_tpu_torch.utils import convert
 
-from _torch_port import jax_apply, jax_init, load, port_apply
+from _torch_port import jax_apply, jax_init, load, one_torch_thread, port_apply  # noqa: F401
 
 TOL = dict(atol=2e-5, rtol=2e-5)
 

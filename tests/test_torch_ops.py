@@ -17,7 +17,7 @@ from rtfs_net_tpu.ops import stft as jstft
 from rtfs_net_tpu_torch.ops import activations, conv, normalizations, stft
 from rtfs_net_tpu_torch.utils import convert
 
-from _torch_port import jax_apply, jax_init, load, port_apply
+from _torch_port import jax_apply, jax_init, load, one_torch_thread, port_apply  # noqa: F401
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 

@@ -21,7 +21,7 @@ from rtfs_net_tpu_torch.ops.kernels import sru as ksru
 from rtfs_net_tpu_torch.utils import convert
 from rtfs_net_tpu_torch.utils.separator import separate
 
-from _torch_port import jax_apply, jax_init, load, port_apply
+from _torch_port import jax_apply, jax_init, load, one_torch_thread, port_apply  # noqa: F401
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 
