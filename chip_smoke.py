@@ -6,36 +6,55 @@
 Phases (any failure exits non-zero before the final line):
 
 1. preconditions: a CUDA card; prints ``nvidia-smi``'s name and power limit.
-2. build: both kernel sources (``csrc/sru_stack_layer.cu``, the inference
-   SRU kernel K1, and ``csrc/sru_train.cu``, the training SRU kernels K2)
-   with one ``nvcc`` each, started together, into
+2. build: the four kernel sources (``csrc/sru_stack_layer.cu``, the
+   inference SRU kernel K1; ``csrc/sru_train.cu``, the training SRU
+   kernels K2; ``csrc/dw_conv.cu``, the depthwise stencil K3;
+   ``csrc/sru_direction.cu``, the per-direction SRU kernel K4) with one
+   ``nvcc`` each, started together, into
    ``rtfs_net_tpu_torch/csrc/build/``, timed.
 3. kernel K1: against its plain PyTorch version on the card, at the
    shapes the B=16 serving forward gives it, with times and the bound.
-4. serving: RTFS-Net-4 at full width (random weights from seed 0) answers
+4. kernel K3: against its plain version at (B, 64, 251, 129) and
+   (B, 64, 125, 64) for B = 16 and 128 with the 4x4 kernel and pads (1, 2)
+   of the main path, and at small shapes with a 3x3, a 2x3 and a 7x2
+   kernel, float32 and bfloat16, with times, the bound and the time of
+   ``F.pad`` + ``F.conv2d(groups=C)`` on the same inputs; its backward
+   against autograd through the plain version.
+5. kernel K4: against its plain version at (57, 2000, 32) and
+   (118, 1024, 32), both directions, on slices of one projection, float32
+   and bfloat16, with times and the bound.
+6. serving: RTFS-Net-4 at full width (random weights from seed 0) answers
    requests of 2 s mixtures plus (B, 512, 50) lip embeddings at B = 1, 4,
-   16 through ``separate()``; K1 must launch exactly 32 times per forward
-   and K2 never; B=1 in float32 is held against the same model on the CPU;
-   ms per forward and per utterance in float32 and bfloat16.
-5. profile: ``torch.profiler`` over a few forwards of the same model and
-   requests per (dtype, B): wall and device busy time, idle share, kernel
-   launches, device time by kernel category and the top kernels.
-6. kernel K2: its forward and backward against their plain versions at
+   16 through ``separate()``; K1 must launch exactly 32 times and K3
+   exactly 40 times per forward, K2 and K4 never; B=1 in float32 is held
+   against the same model on the CPU; ms per forward and per utterance in
+   float32 and bfloat16.
+7. serving from frames: the same model behind the FRCNN video model
+   (ResNet-18 trunk, random weights from seed 0) answers requests of 2 s
+   mixtures plus raw (B, 1, 50, 88, 88) mouth-ROI frames at B = 1, 4, 16 in
+   float32 and bfloat16 and at B = 128 in bfloat16, with the same launch
+   counts; B=1 in float32 against the two models on the CPU; ms per
+   forward and per utterance, and peak memory at B = 128.
+8. the per-direction pass: the B=16 float32 request from frames with
+   ``DEFAULT_SRU_BACKEND = "pallas"``: exactly 64 K4 launches, no K1, the
+   output held against the ``"scan"`` pass; ms per forward of both.
+9. profile: ``torch.profiler`` over a few forwards per (dtype, B), from
+   embeddings and from frames: wall and device busy time, idle share,
+   kernel launches, device time by kernel category and the top kernels.
+10. kernel K2: its forward and backward against their plain versions at
    the four shapes the B=4 and B=16 train steps give them, k = 3 and 4,
    float32 and bfloat16, with times and bounds.
-7. training: ``System.train_step`` of RTFS-Net-4 at full width (AdamW lr
+11. training: ``System.train_step`` of RTFS-Net-4 at full width (AdamW lr
    1e-3, wd 0.1, clip 5.0, PIT neg-SNR; the target is the mixture) at
    B = 4 and 16, in float32 and with ``compute_dtype=bfloat16``: each step
    launches K2's forward exactly 64 times (32 layers, and again in the
-   checkpointed blocks' recompute), its backward 32 times and K1 never;
+   checkpointed blocks' recompute), its backward 32 times, K3 120 times
+   (40 convs, their recompute, and the 40 input gradients) and K1 never;
    loss and grad norm finite; median ms per step and peak memory.
-8. train parity: one float32 B=1 step (dropout off) on the card against
+12. train parity: one float32 B=1 step (dropout off) on the card against
    the same step on the CPU: the loss and every gradient.
-9. train profile: ``torch.profiler`` over one B=16 bfloat16 step.
-10. K3's library call: ``F.conv2d(groups=C)`` at the shapes of the
-   stride-1 depthwise convs of a B=16 forward (K3 is not ported), and the
-   bounds of K3 and K4.
-11. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}`` last.
+13. train profile: ``torch.profiler`` over one B=16 bfloat16 step.
+14. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}`` last.
 
 Every comparison on the card runs with TF32 off (cuDNN convolutions and
 matmuls in full float32), and so do the float32 timings.
@@ -76,10 +95,22 @@ SRU_LAYERS = {4: 1, 3: 3}  # layers per 4-layer stack with k=4 and k=3 chunks
 REPEATS = 4                # TDANet repeats per forward (1 fused + 3 audio-only)
 SERVE_BATCHES = (1, 4, 16)
 SERVE_REPS = 11  # timed forwards per (dtype, B); small batches are host-bound and noisy
+BIG_BATCH = 128  # the batch the JAX package's serving benchmark runs, in bfloat16
+VIDEO_FRAMES, MOUTH_SIZE = 50, 88  # 2 s of 25 fps mouth-ROI frames
+CHANNELS = 64  # TDANet hid_chan: the depthwise convs' channels
+DW_PLANES = {(251, 129): 3, (125, 64): 7}  # K3 launches per TDANet block, by (T, F)
+DW_KERNEL, DW_PADS = (4, 4), ((1, 2), (1, 2))
+DW_LAUNCHES = REPEATS * sum(DW_PLANES.values())  # 40 per forward
+# small K3 cases: (shape, kernel, pads); the last takes the generic kernel
+DW_SMALL = [((2, 5, 33, 17), (3, 3), ((1, 1), (1, 1))),
+            ((3, 4, 19, 40), (2, 3), ((0, 1), (1, 1))),
+            ((2, 3, 21, 9), (7, 2), ((3, 3), (0, 1)))]
 PROFILE_ITERS, PROFILE_TOP = 3, 6  # profiled forwards per (dtype, B); kernels listed
 PROFILE_CATEGORIES = [  # kernel name regexes, first match wins
     ("sru_kernel", r"sru_stack_layer"),
     ("sru_train_kernel", r"sru_train"),
+    ("sru_direction_kernel", r"sru_direction"),
+    ("dw_conv_kernel", r"dw_conv_(sliding|generic)"),
     ("fft", r"fft"),
     ("softmax", r"softmax"),
     ("norm_reduce", r"norm|reduce|welford|moments"),
@@ -112,6 +143,58 @@ def event_ms(fn, reps, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def kernel_modules():
+    from rtfs_net_tpu_torch.ops.kernels import dw_conv, sru, sru_direction, sru_train
+
+    return sru, sru_train, dw_conv, sru_direction
+
+
+def launch_counts():
+    """Every wrapper's count of kernel launches, by kernel."""
+    ksru, ktrain, kdw, kdir = kernel_modules()
+    return {"K1": ksru.launches, "K2_forward": ktrain.forward_launches,
+            "K2_backward": ktrain.backward_launches, "K3": kdw.launches,
+            "K4": kdir.launches}
+
+
+def reset_launch_counts():
+    ksru, ktrain, kdw, kdir = kernel_modules()
+    ksru.launches = ktrain.forward_launches = ktrain.backward_launches = 0
+    kdw.launches = kdir.launches = 0
+
+
+def launches_of(fn, want, what):
+    """Run ``fn``, synchronise, and fail unless it launched each kernel
+    exactly ``want`` times (kernels not named: never)."""
+    import torch
+
+    before = launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    got = {k: n - before[k] for k, n in launch_counts().items()}
+    if got != {k: want.get(k, 0) for k in got}:
+        fail(f"{what}: launches {got}, want {want} and no others")
+    return out
+
+
+def host_ms(fn, reps):
+    """Sorted host-clock times of ``reps`` synchronised calls, in ms."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)
+
+
+def dtype_name(dtype):
+    return str(dtype).split(".")[-1]
 
 
 def sru_inputs(L, rows, k, dtype, gen, copies):
@@ -197,79 +280,291 @@ def check_sru_kernel():
     return {"max_abs_err": max_err[torch.float32], "bound_by": bound_by, **per_forward}
 
 
+def dw_library(x, w, pads):
+    """The one PyTorch call that computes K3's function: ``F.pad`` (torch's
+    conv takes no asymmetric padding) + ``F.conv2d(groups=C)``."""
+    import torch.nn.functional as F
+
+    (lo_t, hi_t), (lo_f, hi_f) = pads
+    return F.conv2d(F.pad(x, (lo_f, hi_f, lo_t, hi_t)), w, groups=x.shape[1])
+
+
+def check_dw_conv_kernel():
+    """The depthwise stencil against its plain version: the main path's
+    shapes at B = 16 and 128 with times, the bound and the library call's
+    time; small shapes with other kernels; the backward at one shape.
+    Returns the sums over the 40 launches of a B=16 float32 forward."""
+    import torch
+
+    _, _, kdw, _ = kernel_modules()
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    per_forward = collections.Counter()
+    max_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    main = [((B, CHANNELS, T, Fq), DW_KERNEL, DW_PADS)
+            for B in (16, BIG_BATCH) for T, Fq in DW_PLANES]
+    for shape, kernel, pads in main + DW_SMALL:
+        timed = shape[1] == CHANNELS
+        for dtype in (torch.float32, torch.bfloat16):
+            item = torch.tensor([], dtype=dtype).element_size()
+            n = math.prod(shape)
+            # rotate through inputs totalling > 100 MB so each launch
+            # reads from HBM, not from the 50 MB L2
+            copies = 1 + int(100e6 // (n * item)) if timed else 1
+            xs = [torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                  for _ in range(copies)]
+            w = torch.randn((shape[1], 1, *kernel), generator=gen, device="cuda")
+            x = xs[0]
+            got = kdw.dw_conv2d_same(x, w, pads)
+            torch.cuda.synchronize()
+            want = kdw.dw_conv2d_same_ref(x, w, pads)
+            ok, err = tolerance_ok(got, want, dtype)
+            name = f"x={shape} k={kernel} pads={pads} {dtype}"
+            if not ok:
+                fail(f"dw_conv2d_same {name}: max_abs_err {err} out of tolerance")
+            max_err[dtype] = max(max_err[dtype], err)
+            row = {"x": shape, "k": kernel, "pads": pads, "dtype": dtype_name(dtype),
+                   "max_abs_err": err}
+            if timed:
+                it = itertools.count()
+                w_lib = w.to(dtype)
+                ms = event_ms(lambda: kdw.dw_conv2d_same(xs[next(it) % copies], w, pads),
+                              reps=20)
+                library_ms = event_ms(lambda: dw_library(xs[next(it) % copies], w_lib, pads),
+                                      reps=20)
+                plain_ms = event_ms(lambda: kdw.dw_conv2d_same_ref(x, w, pads),
+                                    reps=2, warmup=1)
+                nbytes = 2 * n * item + w.numel() * 4
+                bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+                ops_ms = 2 * math.prod(kernel) * n / FP32_OPS_PER_S * 1e3
+                row.update({"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                            "bound_ms": max(bytes_ms, ops_ms),
+                            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                            "GB_per_s": nbytes / ms / 1e6})
+                if dtype == torch.float32 and shape[0] == 16:
+                    calls = REPEATS * DW_PLANES[shape[2:]]
+                    for key, value in (("ms", ms), ("plain_ms", plain_ms),
+                                       ("library_ms", library_ms), ("bytes_ms", bytes_ms),
+                                       ("ops_ms", ops_ms)):
+                        per_forward[key] += calls * value
+            print("dw_conv2d_same " + json.dumps(row))
+            del xs, x, got, want
+
+    # the backward: dx through the kernel, dw through PyTorch's convolution
+    # backward, against autograd through the plain version
+    shape = (4, CHANNELS, 125, 64)
+    x = torch.randn(shape, generator=gen, device="cuda")
+    w = torch.randn((CHANNELS, 1, *DW_KERNEL), generator=gen, device="cuda")
+    g = torch.randn(shape, generator=gen, device="cuda")
+    grads = []
+    for fn in (kdw.dw_conv2d_same, kdw.dw_conv2d_same_ref):
+        xi, wi = x.clone().requires_grad_(), w.clone().requires_grad_()
+        before = kdw.launches
+        fn(xi, wi, DW_PADS).backward(g)
+        grads.append((xi.grad, wi.grad, kdw.launches - before))
+    (dx, dw, n_launched), (dx_ref, dw_ref, _) = grads
+    if n_launched != 2:
+        fail(f"dw_conv2d_same forward + backward launched the kernel {n_launched} times, want 2")
+    ok, dx_err = tolerance_ok(dx, dx_ref, torch.float32)
+    dw_err, dw_tol = float((dw - dw_ref).abs().max()), 1e-4 * float(dw_ref.abs().max())
+    print("dw_conv2d_same backward " + json.dumps({
+        "x": shape, "dx_max_abs_err": dx_err, "dw_max_abs_err": dw_err, "dw_tol": dw_tol}))
+    if not ok or not dw_err <= dw_tol:
+        fail("dw_conv2d_same backward disagrees with autograd through the plain version")
+
+    print(f"dw_conv2d_same: max_abs_err float32 {max_err[torch.float32]} "
+          f"(tol 1e-5 + 1e-5*|ref|), bfloat16 {max_err[torch.bfloat16]} "
+          f"(tol {BF16_ATOL} + {BF16_RTOL}*|ref|)")
+    bytes_ms, ops_ms = per_forward.pop("bytes_ms"), per_forward.pop("ops_ms")
+    out = {"max_abs_err": max_err[torch.float32], **per_forward,
+           "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    print(f"dw_conv2d_same per B=16 float32 forward ({DW_LAUNCHES} launches): "
+          + json.dumps(out))
+    return out
+
+
+def check_sru_direction_kernel():
+    """The per-direction SRU kernel against its plain version at the B=16
+    serving shapes, both directions, on the slices of one (L, rows, 4, O)
+    projection that the route gives it. Returns the sums over the 64
+    launches of a B=16 float32 forward."""
+    import torch
+
+    _, _, _, kdir = kernel_modules()
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    O = 2 * H
+    per_forward = collections.Counter()
+    max_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for L, rows in SRU_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            item = torch.tensor([], dtype=dtype).element_size()
+            nbytes = 5 * L * rows * H * item
+            copies = 1 + int(100e6 // (4 * L * rows * H * item))
+            us = [torch.randn((L, rows, 4, O), generator=gen, device="cuda").to(dtype)
+                  for _ in range(copies)]
+            gates = [0.5 * torch.randn(H, generator=gen, device="cuda") for _ in range(4)]
+            for reverse in (False, True):
+                sl = slice(H, O) if reverse else slice(0, H)
+
+                def operands(u):
+                    return [u[:, :, c, sl] for c in range(4)]
+
+                got = kdir.sru_direction(*operands(us[0]), *gates, reverse=reverse)
+                torch.cuda.synchronize()
+                want = kdir.sru_direction_ref(*operands(us[0]), *gates, reverse=reverse)
+                ok, err = tolerance_ok(got, want, dtype)
+                if not ok:
+                    fail(f"sru_direction L={L} rows={rows} reverse={reverse} {dtype}: "
+                         f"max_abs_err {err} out of tolerance")
+                max_err[dtype] = max(max_err[dtype], err)
+                it = itertools.count()
+                ms = event_ms(lambda: kdir.sru_direction(*operands(us[next(it) % copies]),
+                                                         *gates, reverse=reverse), reps=20)
+                plain_ms = event_ms(lambda: kdir.sru_direction_ref(
+                    *operands(us[0]), *gates, reverse=reverse), reps=2, warmup=1)
+                bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+                ops_ms = SRU_OPS_PER_ELEMENT * L * rows * H / FP32_OPS_PER_S * 1e3
+                print("sru_direction " + json.dumps({
+                    "L": L, "rows": rows, "H": H, "reverse": reverse,
+                    "dtype": dtype_name(dtype), "max_abs_err": err, "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+                    "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                    "GB_per_s": nbytes / ms / 1e6}))
+                if dtype == torch.float32:
+                    calls = REPEATS * sum(SRU_LAYERS.values())  # per direction
+                    for key, value in (("ms", ms), ("plain_ms", plain_ms),
+                                       ("bytes_ms", bytes_ms), ("ops_ms", ops_ms)):
+                        per_forward[key] += calls * value
+            del us
+    print(f"sru_direction: max_abs_err float32 {max_err[torch.float32]} "
+          f"(tol 1e-5 + 1e-5*|ref|), bfloat16 {max_err[torch.bfloat16]} "
+          f"(tol {BF16_ATOL} + {BF16_RTOL}*|ref|)")
+    bytes_ms, ops_ms = per_forward.pop("bytes_ms"), per_forward.pop("ops_ms")
+    out = {"max_abs_err": max_err[torch.float32], **per_forward,
+           "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    print("sru_direction per B=16 float32 forward (64 launches): " + json.dumps(out))
+    return out
+
+
 def serving_setup():
-    """RTFS-Net-4 at full width on the card, and one request per batch size."""
+    """RTFS-Net-4 and its video model at full width on the card, and one
+    request per batch size: (mixture, lip embedding) and (mixture, frames)."""
     import torch
     import yaml
 
-    from rtfs_net_tpu_torch.models import build_model
+    from rtfs_net_tpu_torch.models import build_model, build_video_model
 
     with open(CONFIG) as f:
         conf = yaml.safe_load(f)
     model = build_model(conf, device="cuda", generator=torch.Generator().manual_seed(0))
+    video = build_video_model(conf, device="cuda", generator=torch.Generator().manual_seed(0))
     gen = torch.Generator(device="cuda").manual_seed(1)
-    requests = [(torch.randn((B, SAMPLES), generator=gen, device="cuda"),
-                 0.1 * torch.randn((B, LIP_CHANNELS, LIP_FRAMES), generator=gen, device="cuda"))
-                for B in SERVE_BATCHES]
-    return model, requests
+    requests = {B: (torch.randn((B, SAMPLES), generator=gen, device="cuda"),
+                    0.1 * torch.randn((B, LIP_CHANNELS, LIP_FRAMES), generator=gen,
+                                      device="cuda"))
+                for B in SERVE_BATCHES}
+    frame_requests = {B: (torch.randn((B, SAMPLES), generator=gen, device="cuda"),
+                          torch.randn((B, 1, VIDEO_FRAMES, MOUTH_SIZE, MOUTH_SIZE),
+                                      generator=gen, device="cuda"))
+                      for B in SERVE_BATCHES + (BIG_BATCH,)}
+    return model, video, requests, frame_requests
 
 
-def check_serving(model, requests):
-    """The main path: one float32 forward per request, SRU launches counted;
-    then B=1 against the CPU, then timings. Returns the main path's launches."""
+def check_serving(label, model, requests, video=None):
+    """One serving path: a counted forward per request (float32; bfloat16
+    at the big batch), then B=1 against the CPU, then timings. ``requests``
+    maps B to (mixture, lip embedding), or with ``video`` to (mixture,
+    frames). Returns the path's launch counts and its outputs by B."""
     import torch
 
-    from rtfs_net_tpu_torch.ops.kernels import sru as ksru
-    from rtfs_net_tpu_torch.ops.kernels import sru_train as ktrain
     from rtfs_net_tpu_torch.utils.separator import separate
 
-    ksru.launches = ktrain.forward_launches = ktrain.backward_launches = 0
-    outs = []
-    for B, (mix, mouth) in zip(SERVE_BATCHES, requests):
-        before = ksru.launches
-        outs.append(separate(model, mix, mouth))
-        torch.cuda.synchronize()
-        n = ksru.launches - before
-        if n != 32:
-            fail(f"B={B}: sru_stack_layer launched {n} times in one forward, want 32")
-    launches = ksru.launches
-    if ktrain.forward_launches or ktrain.backward_launches:
-        fail("the serving forward launched the training kernels")
-    print(f"main path launches (serving): sru_stack_layer {launches}")
-    for B, out in zip(SERVE_BATCHES, outs):
-        if tuple(out.shape) != (B, 1, SAMPLES) or not bool(torch.isfinite(out).all()):
-            fail(f"B={B}: output {tuple(out.shape)}, finite={bool(torch.isfinite(out).all())}")
-    print("serving: outputs " + ", ".join(str(tuple(o.shape)) for o in outs) + ", all finite")
+    def dtypes(B):
+        return (torch.bfloat16,) if B == BIG_BATCH else (torch.float32, torch.bfloat16)
 
-    # B=1 float32 against the same model on the CPU (plain SRU path)
-    cpu_model = copy.deepcopy(model).cpu()
-    mix, mouth = requests[0]
-    ref = separate(cpu_model, mix.cpu(), mouth.cpu(), device="cpu")
-    err = float((outs[0].cpu() - ref).abs().max())
+    def forward(B, dtype):
+        mix, third = requests[B]
+        return separate(model, mix, third, video_model=video, dtype=dtype)
+
+    reset_launch_counts()
+    outs = {B: launches_of(lambda: forward(B, dtypes(B)[0]),
+                           {"K1": 32, "K3": DW_LAUNCHES}, f"{label} B={B}")
+            for B in requests}
+    launches = launch_counts()
+    print(f"main path launches ({label}): " + json.dumps(launches))
+    for B, out in outs.items():
+        if tuple(out.shape) != (B, 1, SAMPLES) or not bool(torch.isfinite(out).all()):
+            fail(f"{label} B={B}: output {tuple(out.shape)}, "
+                 f"finite={bool(torch.isfinite(out).all())}")
+    print(f"{label}: outputs " + ", ".join(str(tuple(o.shape)) for o in outs.values())
+          + ", all finite")
+
+    # B=1 float32 against the same models on the CPU (plain versions of the kernels)
+    mix, third = requests[1]
+    ref = separate(copy.deepcopy(model).cpu(), mix.cpu(), third.cpu(), device="cpu",
+                   video_model=None if video is None else copy.deepcopy(video).cpu())
+    err = float((outs[1].cpu() - ref).abs().max())
     scale = float(ref.abs().max())
-    print(f"serving B=1 float32 vs CPU: max_abs_err {err}, max|ref| {scale}, "
+    print(f"{label} B=1 float32 vs CPU: max_abs_err {err}, max|ref| {scale}, "
           f"tol 5e-4*max|ref| = {5e-4 * scale}")
     if not err <= 5e-4 * scale:
-        fail("B=1 float32 output disagrees with the CPU forward")
-    del cpu_model
+        fail(f"{label}: B=1 float32 output disagrees with the CPU forward")
 
     for dtype in (torch.float32, torch.bfloat16):
-        for B, (mix, mouth) in zip(SERVE_BATCHES, requests):
-            out = separate(model, mix, mouth, dtype=dtype)  # warm-up
-            if not bool(torch.isfinite(out).all()):
-                fail(f"B={B} {dtype}: non-finite output")
-            times = []
-            for _ in range(SERVE_REPS):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                separate(model, mix, mouth, dtype=dtype)
-                torch.cuda.synchronize()
-                times.append((time.perf_counter() - t0) * 1e3)
-            times.sort()
+        for B in requests:
+            if dtype not in dtypes(B):
+                continue
+            torch.cuda.reset_peak_memory_stats()
+            if not bool(torch.isfinite(forward(B, dtype)).all()):  # warm-up
+                fail(f"{label} B={B} {dtype}: non-finite output")
+            times = host_ms(lambda: forward(B, dtype), SERVE_REPS)
             median = times[len(times) // 2]
-            print("serving " + json.dumps({
-                "dtype": str(dtype).split(".")[-1], "B": B, "ms_per_forward_median": median,
-                "ms_per_forward_min": times[0], "ms_per_utt_median": median / B}))
+            print(f"{label} " + json.dumps({
+                "dtype": dtype_name(dtype), "B": B, "ms_per_forward_median": median,
+                "ms_per_forward_min": times[0], "ms_per_utt_median": median / B,
+                "peak_mem_GiB": torch.cuda.max_memory_allocated() / 2 ** 30}))
+    return launches, outs
+
+
+def check_direction_pass(model, video, request, scan_out):
+    """The per-direction route: the B=16 float32 request from frames with
+    ``DEFAULT_SRU_BACKEND = "pallas"`` set for the pass and restored after.
+    Returns the pass's launch counts."""
+    import torch
+
+    from rtfs_net_tpu_torch.ops import rnn
+    from rtfs_net_tpu_torch.utils.separator import separate
+
+    mix, frames = request
+
+    def forward():
+        return separate(model, mix, frames, video_model=video)
+
+    def with_backend(backend, fn):
+        rnn.DEFAULT_SRU_BACKEND = backend
+        try:
+            return fn()
+        finally:
+            rnn.DEFAULT_SRU_BACKEND = "scan"
+
+    reset_launch_counts()
+    out = with_backend("pallas", lambda: launches_of(
+        forward, {"K4": 64, "K3": DW_LAUNCHES}, "per-direction pass"))
+    launches = launch_counts()
+    print("main path launches (per-direction pass): " + json.dumps(launches))
+    err = float((out - scan_out).abs().max())
+    tol = 1e-5 + 1e-4 * float(scan_out.abs().max())
+    print(f"per-direction pass vs scan pass: max_abs_err {err}, tol {tol}")
+    if not err <= tol or not bool(torch.isfinite(out).all()):
+        fail("the per-direction pass disagrees with the scan pass")
+    times = {"scan": [], "pallas": []}
+    for backend in ("scan", "pallas", "pallas", "scan"):
+        times[backend] += with_backend(backend, lambda: host_ms(forward, SERVE_REPS // 2 + 1))
+    print("per-direction pass " + json.dumps({
+        "dtype": "float32", "B": mix.shape[0],
+        **{f"{b}_ms_per_forward_median": sorted(t)[len(t) // 2] for b, t in times.items()},
+        **{f"{b}_ms_per_forward_min": min(t) for b, t in times.items()}}))
     return launches
 
 
@@ -315,16 +610,23 @@ def profile_line(label, fn, iters):
     }))
 
 
-def profile_serving(model, requests):
-    """Where a forward's time goes, per (dtype, B), from ``torch.profiler``."""
+def profile_serving(model, video, requests, frame_requests):
+    """Where a forward's time goes, per (dtype, B), from ``torch.profiler``:
+    from lip embeddings at every batch, and from frames at B = 16 in
+    float32 and at the big batch in bfloat16."""
     import torch
 
     from rtfs_net_tpu_torch.utils.separator import separate
 
     for dtype in (torch.float32, torch.bfloat16):
-        for B, (mix, mouth) in zip(SERVE_BATCHES, requests):
-            profile_line({"dtype": str(dtype).split(".")[-1], "B": B},
+        for B, (mix, mouth) in requests.items():
+            profile_line({"dtype": dtype_name(dtype), "B": B},
                          lambda: separate(model, mix, mouth, dtype=dtype), PROFILE_ITERS)
+    for dtype, B in ((torch.float32, 16), (torch.bfloat16, BIG_BATCH)):
+        mix, frames = frame_requests[B]
+        profile_line({"from": "frames", "dtype": dtype_name(dtype), "B": B},
+                     lambda: separate(model, mix, frames, video_model=video, dtype=dtype),
+                     PROFILE_ITERS if B <= 16 else 1)
 
 
 def tolerance_ok(got, want, dtype):
@@ -476,13 +778,12 @@ def train_batch(B, gen):
 
 def check_training():
     """The training path: per (dtype, B), one counted step (K2 forward 64,
-    backward 32, K1 0), then timed steps and peak memory. Returns the
-    path's launch counts."""
+    K2 backward 32, K3 120: the 40 convs, their checkpointed recompute and
+    the 40 input gradients; K1 and K4 0), then timed steps and peak memory.
+    Returns the path's launch counts."""
     import torch
 
     from rtfs_net_tpu_torch.models import build_model
-    from rtfs_net_tpu_torch.ops.kernels import sru as ksru
-    from rtfs_net_tpu_torch.ops.kernels import sru_train as ktrain
 
     base = build_model(rtfs4_conf(), device="cuda", generator=torch.Generator().manual_seed(0))
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -498,17 +799,11 @@ def check_training():
             fail(f"train {run}: loss {loss}, grad_norm {gnorm}")
         return loss, gnorm
 
-    ksru.launches = ktrain.forward_launches = ktrain.backward_launches = 0
+    reset_launch_counts()
     for run in runs:
-        before = (ktrain.forward_launches, ktrain.backward_launches, ksru.launches)
-        step(run)
-        torch.cuda.synchronize()
-        n = [a - b for a, b in zip((ktrain.forward_launches, ktrain.backward_launches,
-                                    ksru.launches), before)]
-        if n != [64, 32, 0]:
-            fail(f"train {run}: launches (K2 forward, K2 backward, K1) = {n}, want [64, 32, 0]")
-    launches = {"forward": ktrain.forward_launches, "backward": ktrain.backward_launches,
-                "sru_stack_layer": ksru.launches}
+        launches_of(lambda: step(run), {"K2_forward": 64, "K2_backward": 32,
+                                        "K3": 3 * DW_LAUNCHES}, f"train {run}")
+    launches = launch_counts()
     print("main path launches (training): " + json.dumps(launches))
 
     for run in runs:
@@ -573,65 +868,6 @@ def profile_training(base):
                  lambda: system.train_step(batch, generator=gen), 1)
 
 
-def check_k3_library(model):
-    """K3 (the stride-1 depthwise k x k conv, not ported) at the shapes a
-    B=16 float32 forward gives it: the time of ``F.conv2d(groups=C)``, and
-    its bound; and K4's bound (one SRU direction, inference) at K1's
-    main-path shapes."""
-    import torch
-    import torch.nn.functional as F
-
-    from rtfs_net_tpu_torch.ops.conv import Conv
-    from rtfs_net_tpu_torch.utils.separator import separate
-
-    calls = collections.Counter()
-
-    def hook(mod, args):
-        x = args[0]
-        if mod.pad is not None:
-            x = F.pad(x, mod.pad)
-        calls[(tuple(x.shape), tuple(mod.weight.shape), str(x.dtype))] += 1
-
-    handles = [m.register_forward_pre_hook(hook) for m in model.modules()
-               if isinstance(m, Conv) and m.ndim == 2 and m.groups > 1
-               and m.weight.shape[1] == 1 and m.stride == (1, 1) and m.weight.shape[2] > 1]
-    gen = torch.Generator(device="cuda").manual_seed(8)
-    separate(model, torch.randn((16, SAMPLES), generator=gen, device="cuda"),
-             torch.randn((16, LIP_CHANNELS, LIP_FRAMES), generator=gen, device="cuda"))
-    for h in handles:
-        h.remove()
-    total = collections.Counter()
-    for (xs, ws, _), n in sorted(calls.items()):
-        B, C, Tp, Fp = xs
-        kt, kf = ws[2], ws[3]
-        To, Fo = Tp - kt + 1, Fp - kf + 1
-        x = torch.randn(xs, generator=gen, device="cuda")
-        w = torch.randn(ws, generator=gen, device="cuda")
-        ms = event_ms(lambda: F.conv2d(x, w, groups=C), reps=20)
-        nbytes = (x.numel() + B * C * To * Fo + w.numel()) * 4
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = 2 * kt * kf * B * C * To * Fo / FP32_OPS_PER_S * 1e3
-        print("k3_library " + json.dumps({
-            "x_padded": xs, "w": ws, "calls_per_forward": n, "library_ms": ms,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}))
-        total["calls"] += n
-        total["library_ms"] += n * ms
-        total["bytes_ms"] += n * bytes_ms
-        total["ops_ms"] += n * ops_ms
-    if not total["calls"]:
-        fail("k3: no stride-1 depthwise conv ran in the forward")
-    print("k3_library per B=16 float32 forward: " + json.dumps({
-        "calls": total["calls"], "library_ms": total["library_ms"],
-        "bound_ms": max(total["bytes_ms"], total["ops_ms"]),
-        "bound_by": "bytes" if total["bytes_ms"] >= total["ops_ms"] else "operations"}))
-    # K4 reads u0, u1, u2, skip and writes h, each (L, B, H), per direction
-    k4_bytes = sum(5 * L * rows * H * 4 * 2 * REPEATS * sum(SRU_LAYERS.values())
-                   for L, rows in SRU_SHAPES)
-    print("k4_bound per B=16 float32 forward (64 directions): " + json.dumps({
-        "bound_ms": k4_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}))
-
-
 def main():
     import torch
 
@@ -640,8 +876,6 @@ def main():
         return 2
     sys.path.insert(0, HERE)
     from rtfs_net_tpu_torch.ops.kernels import build
-    from rtfs_net_tpu_torch.ops.kernels import sru as ksru
-    from rtfs_net_tpu_torch.ops.kernels import sru_train as ktrain
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -652,36 +886,55 @@ def main():
           f"{torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    sources = (ksru.SOURCE, ktrain.SOURCE)
+    sources = [m.SOURCE for m in kernel_modules()]
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(lambda src: build.build(build.CSRC / src), sources))
     for src in sources:
         build.load(src)
     print(f"build: {', '.join(sources)} built and loaded in {time.perf_counter() - t0:.3f} s")
     sru = check_sru_kernel()
-    model, requests = serving_setup()
-    launches = check_serving(model, requests)
-    profile_serving(model, requests)
+    dw = check_dw_conv_kernel()
+    direction = check_sru_direction_kernel()
+    model, video, requests, frame_requests = serving_setup()
+    launches, _ = check_serving("serving", model, requests)
+    frame_launches, frame_outs = check_serving("serving from frames", model, frame_requests,
+                                               video)
+    direction_launches = check_direction_pass(model, video, frame_requests[16],
+                                              frame_outs[16])
+    del frame_outs
+    profile_serving(model, video, requests, frame_requests)
+    del model, video, requests, frame_requests
+    torch.cuda.empty_cache()
     sru_train = check_sru_train_kernel()
     base, train_launches = check_training()
     check_train_parity()
     profile_training(base)
-    check_k3_library(model)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
-    # no single PyTorch call computes an SRU layer's recurrence or its backward
+    # no single PyTorch call computes an SRU recurrence or its backward;
+    # F.pad + F.conv2d(groups=C) computes the depthwise stencil
     summary = [{"name": "sru_stack_layer", "route": "cuda",
                 "source": "rtfs_net_tpu_torch/csrc/sru_stack_layer.cu",
                 "replaces": "rtfs_net_tpu/ops/pallas/sru_kernel_v3.py:234",
-                "launches": launches, **{key: sru[key] for key in keys},
+                "launches": launches["K1"], **{key: sru[key] for key in keys},
                 "library_ms": None}]
     for which, line in (("forward", 154), ("backward", 177)):
         summary.append({"name": f"sru_train_{which}", "route": "cuda",
                         "source": "rtfs_net_tpu_torch/csrc/sru_train.cu",
                         "replaces": f"rtfs_net_tpu/ops/pallas/sru_train.py:{line}",
-                        "launches": train_launches[which],
+                        "launches": train_launches[f"K2_{which}"],
                         **{key: sru_train[which][key] for key in keys},
                         "library_ms": None})
+    summary.append({"name": "dw_conv2d_same", "route": "cuda",
+                    "source": "rtfs_net_tpu_torch/csrc/dw_conv.cu",
+                    "replaces": "rtfs_net_tpu/ops/pallas/dw_conv.py:131",
+                    "launches": frame_launches["K3"], **{key: dw[key] for key in keys},
+                    "library_ms": dw["library_ms"]})
+    summary.append({"name": "sru_direction", "route": "cuda",
+                    "source": "rtfs_net_tpu_torch/csrc/sru_direction.cu",
+                    "replaces": "rtfs_net_tpu/ops/pallas/sru_kernel.py:92",
+                    "launches": direction_launches["K4"],
+                    **{key: direction[key] for key in keys}, "library_ms": None})
     print(smi)
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

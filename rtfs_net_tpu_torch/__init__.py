@@ -5,11 +5,13 @@ parameter names follow the reference torch implementation, so a port
 ``state_dict`` is what ``rtfs_net_tpu.utils.avnet_convert.convert_avnet``
 consumes and reference checkpoints load with ``load_state_dict``.
 
-The hot recurrence runs as hand-written CUDA kernels
+The JAX package's Pallas kernels are hand-written CUDA kernels here, built
+by ``nvcc`` at first use: the SRU layer recurrence
 (``csrc/sru_stack_layer.cu`` for inference, ``csrc/sru_train.cu``, forward
-and backward, under autograd), built by ``nvcc`` at first use; everything
-else is plain PyTorch. Entry points run on ``cuda`` unless the caller
-passes ``device="cpu"``.
+and backward, under autograd), the stride-1 depthwise stencil
+(``csrc/dw_conv.cu``) and the per-direction SRU recurrence
+(``csrc/sru_direction.cu``); everything else is plain PyTorch. Entry
+points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"

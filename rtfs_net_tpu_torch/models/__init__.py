@@ -1,5 +1,7 @@
-"""Model construction: ``build_model(conf)`` -> an AVNet in eval mode on
-the requested device (``cuda`` unless the caller passes ``device="cpu"``)."""
+"""Model construction: ``build_model(conf)`` -> an AVNet and
+``build_video_model(conf)`` -> its lip-reading video model, each in eval
+mode on the requested device (``cuda`` unless the caller passes
+``device="cpu"``)."""
 from __future__ import annotations
 
 import inspect
@@ -8,6 +10,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from . import videomodels
 from .avnet import AVNet
 from .layers import accepted_kwargs
 
@@ -38,4 +41,19 @@ def build_model(conf: dict, device="cuda", generator: Optional[torch.Generator] 
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     model = init_weights(AVNet(**accepted_kwargs(AVNet, conf)), generator)
+    return model.to(device).eval()
+
+
+def build_video_model(conf: dict, device="cuda",
+                      generator: Optional[torch.Generator] = None) -> nn.Module:
+    """The video model of a YAML config (the whole file or its ``videonet``
+    section), weights drawn from ``generator`` (default: seed 0), frozen
+    and in eval mode. The config's ``pretrain`` path is not read: a
+    published backbone loads through ``utils.convert.load_video_backbone``."""
+    device = resolve_device(device)
+    conf = conf.get("videonet", conf)
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    cls = videomodels.get(conf["model_name"])
+    model = init_weights(cls(**accepted_kwargs(cls, conf)), generator)
     return model.to(device).eval()

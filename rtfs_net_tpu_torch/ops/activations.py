@@ -8,8 +8,10 @@ import torch.nn.functional as F
 
 
 class PReLU(nn.Module):
-    """torch ``nn.PReLU()`` (one slope, init 0.25, parameter ``weight``);
-    the slope is cast to the activation's dtype."""
+    """torch ``nn.PReLU`` (init 0.25, parameter ``weight``): one slope, or
+    with ``num_parameters=C`` one per channel along dim 1 of a
+    (B, C, *spatial) input of any rank; the slopes are cast to the
+    activation's dtype."""
 
     def __init__(self, num_parameters: int = 1, init: float = 0.25):
         super().__init__()

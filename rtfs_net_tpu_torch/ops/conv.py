@@ -6,6 +6,11 @@ call, as the JAX package does, so one module serves float32 and bfloat16
 inputs. ``padding="same"`` is torch's own: for an even kernel it pads
 ``total // 2`` on the left and the rest on the right, which is what the
 reference relies on (``conv_layers.py:100-101``).
+
+A stride-1 depthwise k x k 2-D conv that keeps its input's size runs, for
+a CUDA tensor, through the hand-written stencil kernel
+(``kernels/dw_conv.py``), which handles the edges itself; every other conv,
+and every conv of a CPU tensor, goes to ``F.conv{1,2,3}d``.
 """
 from __future__ import annotations
 
@@ -17,10 +22,15 @@ from torch import nn
 import torch.nn.functional as F
 
 from .dropout import keep_mask
+from .kernels.dw_conv import dw_conv2d_same, dw_conv_supported
 
 IntOrTuple = Union[int, Sequence[int]]
 
-_CONV = {1: F.conv1d, 2: F.conv2d}
+_CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+_MAX_POOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
+# device types whose eligible depthwise convs go to the stencil kernel's
+# wrapper (on "cpu" the wrapper would run its plain version, which is for tests)
+DW_KERNEL_DEVICES = ("cuda",)
 _CONV_T = {1: F.conv_transpose1d, 2: F.conv_transpose2d}
 
 
@@ -32,19 +42,15 @@ def _to_tuple(v: IntOrTuple, ndim: int) -> Tuple[int, ...]:
 
 
 def _resolve_padding(padding, kernel, dilation):
-    """(explicit F.pad spec or None, conv padding). ``"same"`` pads
-    ``total // 2`` before and the rest after, torch's rule for an even
-    kernel (``rtfs_net_tpu/ops/conv.py:_resolve_padding``)."""
+    """Per-dim (lo, hi) zero padding. ``"same"`` pads ``total // 2`` before
+    and the rest after, torch's rule for an even kernel
+    (``rtfs_net_tpu/ops/conv.py:_resolve_padding``)."""
     if padding == "valid":
-        return None, 0
+        return tuple((0, 0) for _ in kernel)
     if padding != "same":
-        return None, _to_tuple(padding, len(kernel))
-    lo_hi = [(d * (k - 1) // 2, d * (k - 1) - d * (k - 1) // 2)
-             for k, d in zip(kernel, dilation)]
-    if all(lo == hi for lo, hi in lo_hi):
-        return None, tuple(lo for lo, _ in lo_hi)
-    # F.pad lists the last dim first
-    return tuple(p for lo, hi in reversed(lo_hi) for p in (lo, hi)), 0
+        return tuple((p, p) for p in _to_tuple(padding, len(kernel)))
+    return tuple((d * (k - 1) // 2, d * (k - 1) - d * (k - 1) // 2)
+                 for k, d in zip(kernel, dilation))
 
 
 def _uniform_(t, bound: float, generator):
@@ -80,7 +86,7 @@ class _Weighted(nn.Module):
 
 
 class Conv(_Weighted):
-    """torch ``nn.Conv{1,2}d`` on (B, C, *spatial)."""
+    """torch ``nn.Conv{1,2,3}d`` on (B, C, *spatial)."""
 
     def __init__(self, in_chan: int, out_chan: int, kernel_size: IntOrTuple,
                  ndim: int = 1, stride: IntOrTuple = 1,
@@ -91,11 +97,29 @@ class Conv(_Weighted):
         self.ndim, self.groups = ndim, groups
         self.stride = _to_tuple(stride, ndim)
         self.dilation = _to_tuple(dilation, ndim)
-        self.pad, self.padding = _resolve_padding(padding, kernel, self.dilation)
+        self.in_chan, self.out_chan, self.kernel = in_chan, out_chan, kernel
+        self.pads = _resolve_padding(padding, kernel, self.dilation)
+        if all(lo == hi for lo, hi in self.pads):
+            self.pad, self.padding = None, tuple(lo for lo, _ in self.pads)
+        else:  # F.pad lists the last dim first
+            self.pad = tuple(p for lo_hi in reversed(self.pads) for p in lo_hi)
+            self.padding = 0
         super().__init__((out_chan, in_chan // groups, *kernel), out_chan,
                          (in_chan // groups) * rec, out_chan * rec, bias, xavier_init)
 
+    def takes_dw_kernel(self, x) -> bool:
+        """Whether ``x`` goes through the stencil kernel's wrapper."""
+        return x.device.type in DW_KERNEL_DEVICES and dw_conv_supported(
+            tuple(x.shape), self.kernel, self.stride, self.dilation, self.groups,
+            self.in_chan, self.out_chan, self.ndim, self.pads)
+
     def forward(self, x):
+        if self.takes_dw_kernel(x):
+            # float32 weights, as the JAX route has them; the bias is added outside
+            y = dw_conv2d_same(x, self.weight, self.pads)
+            if self.bias is not None:
+                y = y + self.bias.to(x.dtype).view(1, -1, 1, 1)
+            return y
         w, b = self._params(x)
         if self.pad is not None:
             x = F.pad(x, self.pad)
@@ -153,6 +177,13 @@ def adaptive_avg_pool(x: torch.Tensor, output_size: Sequence[int]) -> torch.Tens
         return x
     pool = F.adaptive_avg_pool1d if x.dim() == 3 else F.adaptive_avg_pool2d
     return pool(x, output_size)
+
+
+def max_pool(x: torch.Tensor, kernel: Sequence[int], stride: Sequence[int],
+             padding: Sequence[int]) -> torch.Tensor:
+    """torch ``F.max_pool{1,2,3}d`` (symmetric padding with -inf) on
+    (B, C, *spatial)."""
+    return _MAX_POOL[len(kernel)](x, tuple(kernel), tuple(stride), tuple(padding))
 
 
 def unfold_1d(x: torch.Tensor, kernel_size: int, stride: int = 1) -> torch.Tensor:

@@ -1,0 +1,159 @@
+"""Stride-1 depthwise 2-D convolution with an output of the input's size:
+the CUDA kernel ``csrc/dw_conv.cu``, its plain PyTorch version, the
+``torch.autograd.Function`` around them, and the gate that says which
+convs it takes.
+
+Port of ``rtfs_net_tpu/ops/pallas/dw_conv.py:dw_conv2d_same``, same
+arguments: x (B, C, T, F); w (C, 1, k_t, k_f); ``pads = ((lo_t, hi_t),
+(lo_f, hi_f))`` explicit zero padding with lo + hi = k - 1 on each axis
+(torch's "same" for an even kernel is the asymmetric ((k-1)//2, k//2)).
+Taps are summed in float32 from float32 weights; the output has x's dtype
+and no bias. The kernel handles the edges itself, so no padded copy of x
+is made.
+
+Gradients as the JAX function's ``custom_vjp`` has them: dx is the same
+stencil on dy with the flipped kernel under pads (k-1-lo, k-1-hi), so it
+runs through the kernel too; dw is the per-channel correlation of x with
+dy in float32, through PyTorch's convolution backward.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from . import build
+
+SOURCE = "dw_conv.cu"
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+Pads = Tuple[Tuple[int, int], Tuple[int, int]]
+
+# launches of the CUDA kernel since the last reset (set it to 0 to reset):
+# forward calls and, under autograd, the dx of each backward
+launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _fn():
+    fn = build.load(SOURCE).rtfs_dw_conv2d_same
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def dw_conv_supported(x_shape: Sequence[int], kernel, stride, dilation, groups: int,
+                      in_chan: int, out_chan: int, ndim: int, pads=None) -> bool:
+    """Which convs the kernel takes (``pallas_dw_supported`` without the
+    TPU's batch, halo and VMEM limits): 2-D depthwise, stride 1, dilation
+    1, every k > 1, padding that keeps the size, T and F at least k."""
+    if ndim != 2 or len(x_shape) != 4 or groups != in_chan or out_chan != in_chan:
+        return False
+    if any(s != 1 for s in stride) or any(d != 1 for d in dilation):
+        return False
+    if any(k <= 1 for k in kernel):
+        return False
+    if pads is not None and any(lo < 0 or hi < 0 or lo + hi != k - 1
+                                for (lo, hi), k in zip(pads, kernel)):
+        return False
+    _, _, T, Fq = x_shape
+    return T >= max(kernel) and Fq >= max(kernel)
+
+
+def _check(x, w, pads: Pads):
+    if x.dim() != 4:
+        raise ValueError(f"x must be (B, C, T, F), got {tuple(x.shape)}")
+    B, C, T, Fq = x.shape
+    if w.dim() != 4 or w.shape[0] != C or w.shape[1] != 1:
+        raise ValueError(f"w must be ({C}, 1, k_t, k_f), got {tuple(w.shape)}")
+    kernel = (int(w.shape[2]), int(w.shape[3]))
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    if w.device != x.device:
+        raise ValueError("w must be on x's device")
+    pads = tuple((int(lo), int(hi)) for lo, hi in pads)
+    if len(pads) != 2 or any(lo < 0 or hi < 0 or lo + hi != k - 1
+                             for (lo, hi), k in zip(pads, kernel)):
+        raise ValueError(f"pads {pads} do not keep the size under kernel {kernel}")
+    if B * C == 0 or T * Fq == 0:
+        raise ValueError(f"x is empty: {tuple(x.shape)}")
+    return pads
+
+
+def _stencil(x, w, pads: Pads):
+    """The forward on checked inputs, outside autograd: the kernel for a
+    CUDA tensor, the plain version for a CPU tensor."""
+    global launches
+    if x.device.type == "cpu":
+        return dw_conv2d_same_ref(x, w, pads)
+    if x.device.type != "cuda":
+        raise ValueError(f"dw_conv2d_same runs on cuda or cpu, not {x.device}")
+    fn = _fn()
+    B, C, T, Fq = x.shape
+    k_t, k_f = w.shape[2], w.shape[3]
+    x = x.contiguous()
+    wf = w.detach().float().reshape(C, k_t * k_f).contiguous()
+    y = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), wf.data_ptr(), y.data_ptr(), B * C, C, T, Fq, k_t, k_f,
+                 pads[0][0], pads[1][0], _DTYPES[x.dtype],
+                 torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"dw_conv2d_same kernel launch failed: CUDA error {err}")
+    launches += 1
+    return y
+
+
+def dw_conv2d_same_ref(x, w, pads: Pads):
+    """Plain PyTorch version: tap by tap, each a shifted slice of the
+    zero-padded input times its weight, summed in float32 in the order
+    (dt, df); the output has x's dtype."""
+    _, _, T, Fq = x.shape
+    (lo_t, hi_t), (lo_f, hi_f) = pads
+    xp = F.pad(x.float(), (lo_f, hi_f, lo_t, hi_t))
+    wf = w.float()
+    acc = None
+    for dt in range(w.shape[2]):
+        for df in range(w.shape[3]):
+            term = xp[:, :, dt:dt + T, df:df + Fq] * wf[None, :, 0, dt, df, None, None]
+            acc = term if acc is None else acc + term
+    return acc.to(x.dtype)
+
+
+class DwConvFunction(torch.autograd.Function):
+    """y = dw_conv2d_same(x, w), differentiable in both."""
+
+    @staticmethod
+    def forward(ctx, x, w, pads):
+        ctx.save_for_backward(x, w)
+        ctx.pads = pads
+        return _stencil(x, w, pads)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        (lo_t, hi_t), (lo_f, hi_f) = ctx.pads
+        k_t, k_f = w.shape[2], w.shape[3]
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            # correlate dy with the flipped kernel under the transposed padding
+            dx_pads = ((k_t - 1 - lo_t, k_t - 1 - hi_t), (k_f - 1 - lo_f, k_f - 1 - hi_f))
+            dx = _stencil(dy.to(x.dtype), w.flip(2, 3), dx_pads)
+        if ctx.needs_input_grad[1]:
+            # dw[c, 0, dt, df] = sum_{b,t,f} x[b, c, t+dt-lo_t, f+df-lo_f] * dy[b, c, t, f]
+            xp = F.pad(x.float(), (lo_f, hi_f, lo_t, hi_t))
+            dw = torch.nn.grad.conv2d_weight(xp, w.shape, dy.float(),
+                                             groups=x.shape[1]).to(w.dtype)
+        return dx, dw, None
+
+
+def dw_conv2d_same(x, w, pads: Pads):
+    """CUDA tensors launch the kernel; CPU tensors take the plain version.
+    Under autograd the call goes through ``DwConvFunction``; without, the
+    Function is skipped."""
+    pads = _check(x, w, pads)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return DwConvFunction.apply(x, w, pads)
+    return _stencil(x, w, pads)

@@ -72,6 +72,10 @@ class BatchNorm2d(_FloatBatchNorm, nn.BatchNorm2d):
     pass
 
 
+class BatchNorm3d(_FloatBatchNorm, nn.BatchNorm3d):
+    pass
+
+
 class LayerNorm(nn.LayerNorm):
     """``nn.LayerNorm`` over the trailing dims, in float32."""
 
@@ -88,6 +92,7 @@ _REGISTRY = {
     "ln4d": LayerNormalization4D,
     "batchnorm1d": BatchNorm1d,
     "batchnorm2d": BatchNorm2d,
+    "batchnorm3d": BatchNorm3d,
     "layernorm": LayerNorm,
     "identity": nn.Identity,
 }

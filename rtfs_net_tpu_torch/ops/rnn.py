@@ -7,17 +7,27 @@
 with a 4-chunk projection (the 4th chunk is the highway input) when
 d_in != out, else 3 chunks and the raw input as highway.
 
-Every layer runs in the (L, channels, rows) orientation the recurrence
-kernels take (``ops/kernels/sru.py`` for inference, ``sru_train.py``
-when autograd records): the projections emit (L, k·O, rows)
-directly and each layer's (L, O, rows) output feeds the next projection
-as is. Parameters keep the reference's layout, ``rnn_lst.{l}.weight``
+Two routes, named as in the JAX package (``SRU(backend=...)``, default
+``DEFAULT_SRU_BACKEND``):
+
+* ``"scan"``: every layer runs in the (L, channels, rows) orientation the
+  layer kernels take (``ops/kernels/sru.py`` for inference,
+  ``sru_train.py`` when autograd records): the projections emit
+  (L, k·O, rows) directly and each layer's (L, O, rows) output feeds the
+  next projection as is.
+* ``"pallas"``: the per-direction route on the (L, rows, H) layout. Each
+  layer's projection is a matmul into (L, rows, k, O), each direction one
+  call of ``ops/kernels/sru_direction.py`` on slices of it, the outputs
+  concatenated. Inference only: under autograd it raises.
+
+Parameters keep the reference's layout, ``rnn_lst.{l}.weight``
 (d_in, ndir·k·H) with columns [dir][k][h]; they are reordered to the
-kernel's chunk-major [k][dir][h] once per call.
+kernels' chunk-major [k][dir][h] once per call.
 """
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 from torch import nn
@@ -25,7 +35,12 @@ import torch.nn.functional as F
 
 from .conv import unfold_1d
 from .kernels.sru import sru_stack_layer
+from .kernels.sru_direction import sru_direction
 from .kernels.sru_train import sru_layer_train
+
+# the route of an SRU built without ``backend``; read at each call
+DEFAULT_SRU_BACKEND = "scan"
+_BACKENDS = ("scan", "pallas")
 
 
 class SRUCell(nn.Module):
@@ -66,11 +81,32 @@ class SRUCell(nn.Module):
                   else sru_stack_layer)
         return kernel(*args, H=self.hidden_size, k=self.k, ndir=self.ndir)
 
+    def recur_directions(self, u, h_seq):
+        """The per-direction recurrence: u (L, rows, k·O) with columns
+        ``c*O + d*H + h``, h_seq (L, rows, O) the highway input when
+        k == 3; one ``sru_direction`` call per direction on slices of u."""
+        L, rows, _ = u.shape
+        H, O = self.hidden_size, self.hidden_size * self.ndir
+        u = u.view(L, rows, self.k, O)
+        outs = []
+        for d in range(self.ndir):
+            sl = slice(d * H, (d + 1) * H)
+            gate = slice(O + d * H, O + (d + 1) * H)
+            skip = u[:, :, 3, sl] if self.k == 4 else h_seq[:, :, sl]
+            outs.append(sru_direction(
+                u[:, :, 0, sl], u[:, :, 1, sl], u[:, :, 2, sl], skip,
+                self.weight_c[sl], self.weight_c[gate], self.bias[sl], self.bias[gate],
+                reverse=(d == 1)))
+        return torch.cat(outs, dim=-1) if self.ndir > 1 else outs[0]
+
 
 class SRU(nn.Module):
     def __init__(self, input_size: int, hidden_size: int, num_layers: int = 2,
-                 bidirectional: bool = False):
+                 bidirectional: bool = False, backend: Optional[str] = None):
         super().__init__()
+        if backend is not None and backend not in _BACKENDS:
+            raise ValueError(f"unknown SRU backend {backend!r}: one of {_BACKENDS}")
+        self.backend = backend
         out = hidden_size * (2 if bidirectional else 1)
         self.rnn_lst = nn.ModuleList(
             SRUCell(input_size if l == 0 else out, hidden_size, bidirectional)
@@ -83,6 +119,11 @@ class SRU(nn.Module):
         C·k == input_size: layer 0's projection over the unfolded windows is
         one k-wide stride-s conv, so the k× larger unfolded tensor is built
         only when layer 0 needs it as its highway input (k == 3)."""
+        backend = self.backend or DEFAULT_SRU_BACKEND
+        if backend not in _BACKENDS:
+            raise ValueError(f"unknown SRU backend {backend!r}: one of {_BACKENDS}")
+        if backend == "pallas":
+            return self._forward_directions(x, window)
         cell = self.rnn_lst[0]
         w = cell.projection(x.dtype)
         if window is not None:
@@ -101,3 +142,20 @@ class SRU(nn.Module):
             u = torch.matmul(cell.projection(h.dtype), h)
             h = cell.recur(u, h if cell.k == 3 else None)
         return h.permute(0, 2, 1)
+
+    def _forward_directions(self, x, window):
+        """The ``"pallas"`` route: (L, rows, ·) throughout."""
+        cell = self.rnn_lst[0]
+        w = cell.projection(x.dtype)
+        if window is not None:
+            k_w, s_w = window
+            u = F.conv1d(x, w.view(w.shape[0], x.shape[1], k_w), stride=s_w)  # (rows, kO, L)
+            u = u.permute(2, 0, 1).contiguous()
+            h = unfold_1d(x, k_w, s_w).permute(2, 0, 1) if cell.k == 3 else None
+        else:
+            u = torch.matmul(x, w.t())
+            h = x
+        h = cell.recur_directions(u, h)
+        for cell in self.rnn_lst[1:]:
+            h = cell.recur_directions(torch.matmul(h, cell.projection(h.dtype).t()), h)
+        return h

@@ -11,9 +11,12 @@ runs one step at a time on the model's device:
   the optimizer's update;
 * ``val_step``: the eval-mode forward and the val loss, without autograd.
 
-Lip embeddings arrive precomputed, as in the JAX package without a video
-model; ``video_model``, ``train_video_model`` and ``online_mix`` are not
-ported yet and raise ``NotImplementedError``.
+Without ``video_model`` the batch's third entry is the precomputed lip
+embedding; with one it is the raw mouth-ROI frames, and the embedding is
+computed from them without autograd (its BatchNorm statistics frozen)
+unless ``train_video_model``, which also joins the video model's
+parameters to the optimizer's, the clip and the update. ``online_mix`` is
+not ported yet and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -33,12 +36,16 @@ class System:
                  compute_dtype: Optional[torch.dtype] = None, accum_steps: int = 1,
                  video_model=None, train_video_model: bool = False,
                  online_mix: bool = False):
-        if video_model is not None or train_video_model:
-            raise NotImplementedError("System with a video model is not ported yet")
         if online_mix:
             raise NotImplementedError("System(online_mix=True) is not ported yet")
         self.model = model
         self.optimizer = optimizer
+        self.video_model = video_model
+        self.train_video_model = bool(train_video_model and video_model is not None)
+        if video_model is not None:
+            video_model.requires_grad_(self.train_video_model)
+            if self.train_video_model:
+                optimizer.add_param_group({"params": list(video_model.parameters())})
         self.loss_func = loss_func
         self.grad_clip = grad_clip
         # mixed precision: parameters, gradients and the loss stay float32;
@@ -46,10 +53,20 @@ class System:
         self.compute_dtype = compute_dtype
         self.accum_steps = int(accum_steps)
 
+    def _parameters(self):
+        """Every parameter the optimizer updates."""
+        params = list(self.model.parameters())
+        if self.train_video_model:
+            params += list(self.video_model.parameters())
+        return params
+
     def _forward(self, mix, mouths):
         if self.compute_dtype is not None:
             mix = mix.to(self.compute_dtype)
             mouths = None if mouths is None else mouths.to(self.compute_dtype)
+        if self.video_model is not None and mouths is not None:
+            with torch.set_grad_enabled(self.train_video_model and torch.is_grad_enabled()):
+                mouths = self.video_model(mouths)
         return self.model(mix, mouths).float()
 
     @staticmethod
@@ -81,7 +98,7 @@ class System:
                 loss = self.loss_func["train"](self._forward(m, mo), t)
                 (loss / A).backward()
                 total += loss.detach()
-        for p in self.model.parameters():
+        for p in self._parameters():
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         return total / A
@@ -92,7 +109,7 @@ class System:
         gradients' global norm before the clip. The clip scales every
         gradient by min(1, grad_clip / (norm + 1e-6))."""
         loss = self.backward(batch, generator)
-        params = list(self.model.parameters())
+        params = self._parameters()
         if self.grad_clip:
             gnorm = torch.nn.utils.clip_grad_norm_(params, self.grad_clip)
         else:

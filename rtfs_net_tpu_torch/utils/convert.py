@@ -13,6 +13,11 @@ them under the reference torch names the port uses. Besides renaming:
 
 Each mapper takes (reader, out, src, path): ``src`` is the torch key
 prefix written, ``path`` the JAX variable path read.
+
+``video_state_dict_from_jax`` does the same for the FRCNN video model (the
+inverse of ``rtfs_net_tpu/utils/torch_convert.py:_video_key_map``), and
+``load_video_backbone`` loads a reference state dict of that model into
+the port's.
 """
 from __future__ import annotations
 
@@ -253,6 +258,59 @@ def state_dict_from_jax(variables, audionet_conf: dict) -> Dict[str, torch.Tenso
     if r.node(("decoder", "decoder")) is not None:
         _leaf(r, out, "decoder.decoder", ("decoder", "decoder"))
     return to_tensors(out)
+
+
+def _conv_bn(r: Reader, out, conv_key: str, bn_key: str, path: Path):
+    out[f"{conv_key}.weight"] = r.get(path + ("conv", "weight"))
+    norm(r, out, bn_key, path + ("bn",))
+
+
+def video_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
+    """JAX ``FRCNNVideoModel`` variables (resnet backbone) -> the port
+    model's ``state_dict``, under the reference's names."""
+    r, out = Reader(variables), {}
+    out["frontend3D.0.weight"] = r.get(("frontend_conv", "weight"))
+    norm(r, out, "frontend3D.1", ("frontend_bn",))
+    _alpha(r, out, "frontend3D.2.weight", ("frontend_prelu",))
+    for name in sorted(r.node(("trunk",))):  # layer{1-4}_{block}
+        layer, block = name[len("layer"):].split("_")
+        pre, path = f"trunk.layer{layer}.{block}", ("trunk", name)
+        _conv_bn(r, out, f"{pre}.conv1", f"{pre}.bn1", path + ("cbn1",))
+        _conv_bn(r, out, f"{pre}.conv2", f"{pre}.bn2", path + ("cbn2",))
+        _alpha(r, out, f"{pre}.relu1.weight", path + ("relu1",))
+        _alpha(r, out, f"{pre}.relu2.weight", path + ("relu2",))
+        if r.node(path + ("downsample",)) is not None:
+            _conv_bn(r, out, f"{pre}.downsample.0", f"{pre}.downsample.1",
+                     path + ("downsample",))
+    return to_tensors(out)
+
+
+def load_video_backbone(model: torch.nn.Module, state_dict) -> torch.nn.Module:
+    """Load a reference ``FRCNNVideoModel`` state dict (the mapping itself,
+    or a checkpoint that holds it under ``model_state_dict``) into the port's
+    model. The lip-reading head's ``tcn*`` keys and the ``num_batches_tracked``
+    counters are skipped, as the reference loader and
+    ``torch_convert.convert_video_backbone`` skip them; any other key the
+    model lacks, a shape that differs, or a model tensor left without a
+    value raises."""
+    state_dict = state_dict.get("model_state_dict", state_dict)
+    own = model.state_dict()
+    picked = {}
+    for key, value in state_dict.items():
+        if key.startswith("tcn") or key.endswith("num_batches_tracked"):
+            continue
+        if key not in own:
+            raise KeyError(f"{key}: the video model has no such tensor")
+        value = torch.as_tensor(value)
+        if tuple(value.shape) != tuple(own[key].shape):
+            raise ValueError(f"{key}: shape {tuple(value.shape)} != the model's "
+                             f"{tuple(own[key].shape)}")
+        picked[key] = value
+    missing = [k for k in own if k not in picked and not k.endswith("num_batches_tracked")]
+    if missing:
+        raise KeyError(f"the state dict lacks {missing}")
+    model.load_state_dict(picked, strict=False)
+    return model
 
 
 _BUFFERS = ("running_mean", "running_var", "num_batches_tracked")

@@ -9,10 +9,13 @@ import torch
 from ..models import resolve_device
 
 
-def separate(model, wav, mouth_emb=None, *, device="cuda", dtype=torch.float32):
+def separate(model, wav, mouth_emb=None, *, video_model=None, device="cuda",
+             dtype=torch.float32):
     """Separate a (B, L) mixture, optionally conditioned on a (B, C, T_v)
     lip embedding; returns (B, n_src, L) float32 on ``device``, or numpy if
-    ``wav`` was numpy. The model's forward runs in ``dtype`` (float32 or
+    ``wav`` was numpy. With ``video_model``, the third argument is the raw
+    (B, 1, T_v, H, W) mouth-ROI frames and the embedding is computed from
+    them first. Both forwards run on ``device`` in ``dtype`` (float32 or
     bfloat16) without autograd; the output is rescaled so that
     sum|out| == sum|wav| over the whole batch (reference ``separator.py:55``).
     """
@@ -20,7 +23,11 @@ def separate(model, wav, mouth_emb=None, *, device="cuda", dtype=torch.float32):
     was_numpy = isinstance(wav, np.ndarray)
     x = torch.as_tensor(wav, device=device, dtype=torch.float32)
     emb = None if mouth_emb is None else torch.as_tensor(mouth_emb, device=device).to(dtype)
+    if video_model is not None and emb is None:
+        raise ValueError("video_model needs the mouth-ROI frames as the third argument")
     with torch.inference_mode():
+        if video_model is not None:
+            emb = video_model(emb)
         out = model(x.to(dtype), emb).float()
         out = out * (x.abs().sum() / (out.abs().sum() + 1e-8))
     return out.cpu().numpy() if was_numpy else out

@@ -1,9 +1,12 @@
 """The PyTorch port stands alone: nothing under ``rtfs_net_tpu_torch/``,
-nothing in ``chip_smoke.py`` imports JAX, Flax or the JAX package."""
+nothing in ``chip_smoke.py`` imports JAX, Flax or the JAX package; and a
+kernel wrapper given a CUDA tensor launches its kernel or raises, never
+runs its plain version instead."""
 import ast
 import pathlib
 
 import pytest
+import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "rtfs_net_tpu")
@@ -26,3 +29,62 @@ def test_no_jax_imports(path):
 
 def test_port_has_modules():
     assert len(FILES) > 20 and (ROOT / "chip_smoke.py").exists()
+
+
+def test_new_modules_are_covered():
+    names = {str(p.relative_to(ROOT / "rtfs_net_tpu_torch")) for p in FILES[:-1]}
+    assert {"ops/kernels/dw_conv.py", "ops/kernels/sru_direction.py",
+            "models/videomodels/__init__.py", "models/videomodels/resnet.py",
+            "models/videomodels/frcnn_videomodel.py"} <= names
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that says it lies on a CUDA device, as a wrapper would
+    see a tensor on a card."""
+
+    device = property(lambda self: torch.device("cuda", 0))
+    is_cuda = property(lambda self: True)
+
+
+def _on_card(*shape):
+    return torch.zeros(shape).as_subclass(_OnCard)
+
+
+def _dw_conv_call(module):
+    return module.dw_conv2d_same(_on_card(2, 3, 8, 8), _on_card(3, 1, 3, 3), ((1, 1), (1, 1)))
+
+
+def _sru_direction_call(module):
+    return module.sru_direction(*(_on_card(5, 4, 8) for _ in range(4)),
+                                *(_on_card(8) for _ in range(4)))
+
+
+@pytest.mark.parametrize("name,plain,call", [
+    ("dw_conv", "dw_conv2d_same_ref", _dw_conv_call),
+    ("sru_direction", "sru_direction_ref", _sru_direction_call),
+])
+def test_wrapper_raises_without_a_build(monkeypatch, tmp_path, name, plain, call):
+    """No ``nvcc``: the wrapper's build fails and the call raises; the
+    plain version is not taken in its place."""
+    import importlib
+
+    from rtfs_net_tpu_torch.ops.kernels import build
+
+    module = importlib.import_module(f"rtfs_net_tpu_torch.ops.kernels.{name}")
+
+    def no_fallback(*args, **kwargs):
+        raise AssertionError(f"{plain} ran for a CUDA tensor")
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(module, plain, no_fallback)
+    monkeypatch.setattr(build, "nvcc", no_nvcc)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(build, "_libs", {})
+    module._fn.cache_clear()
+    before = module.launches
+    with pytest.raises(RuntimeError, match="nvcc not found"), torch.no_grad():
+        call(module)
+    assert module.launches == before
+    module._fn.cache_clear()
