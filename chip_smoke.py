@@ -19,7 +19,9 @@ Phases (any failure exits non-zero before the final line):
    of the main path, and at small shapes with a 3x3, a 2x3 and a 7x2
    kernel, float32 and bfloat16, with times, the bound and the time of
    ``F.pad`` + ``F.conv2d(groups=C)`` on the same inputs; its backward
-   against autograd through the plain version.
+   against autograd through the plain version; edge cases (odd F, T not a
+   multiple of the band, B*C = 1, x a slice at an odd offset, uneven pads,
+   other kernels), forward and dx, in both dtypes.
 5. kernel K4: against its plain version at (57, 2000, 32) and
    (118, 1024, 32), both directions, on slices of one projection, float32
    and bfloat16, with times and the bound.
@@ -40,10 +42,13 @@ Phases (any failure exits non-zero before the final line):
    output held against the ``"scan"`` pass; ms per forward of both.
 9. profile: ``torch.profiler`` over a few forwards per (dtype, B), from
    embeddings and from frames: wall and device busy time, idle share,
-   kernel launches, device time by kernel category and the top kernels.
+   kernel launches, device time by kernel category and the top kernels;
+   fails if K1's or K3's category shows no time.
 10. kernel K2: its forward and backward against their plain versions at
    the four shapes the B=4 and B=16 train steps give them, k = 3 and 4,
-   float32 and bfloat16, with times and bounds.
+   float32 and bfloat16, with times and bounds; and at edge shapes (rows
+   125, 63 and 500, L = 1 and 2, k = 3 and 4, one and two directions,
+   operands sliced at an odd offset) in both dtypes.
 11. training: ``System.train_step`` of RTFS-Net-4 at full width (AdamW lr
    1e-3, wd 0.1, clip 5.0, PIT neg-SNR; the target is the mixture) at
    B = 4 and 16, in float32 and with ``compute_dtype=bfloat16``: each step
@@ -53,7 +58,8 @@ Phases (any failure exits non-zero before the final line):
    loss and grad norm finite; median ms per step and peak memory.
 12. train parity: one float32 B=1 step (dropout off) on the card against
    the same step on the CPU: the loss and every gradient.
-13. train profile: ``torch.profiler`` over one B=16 bfloat16 step.
+13. train profile: ``torch.profiler`` over one B=16 bfloat16 step; fails
+   if K2's or K3's category shows no time.
 14. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}`` last.
 
 Every comparison on the card runs with TF32 off (cuDNN convolutions and
@@ -90,11 +96,11 @@ SRU_SHAPES = [(57, 125 * 16), (118, 64 * 16)]  # (L, rows): F pass, T pass at B=
 TRAIN_BATCHES = (4, 16)
 # (L, rows) of the F and T passes at each train batch
 TRAIN_SHAPES = [(L, per_utt * B) for B in TRAIN_BATCHES for L, per_utt in ((57, 125), (118, 64))]
-TRAIN_STEPS = 10  # timed steps per (dtype, B), after one counted step
+TRAIN_STEPS = 6  # timed steps per (dtype, B), after one counted step
 SRU_LAYERS = {4: 1, 3: 3}  # layers per 4-layer stack with k=4 and k=3 chunks
 REPEATS = 4                # TDANet repeats per forward (1 fused + 3 audio-only)
 SERVE_BATCHES = (1, 4, 16)
-SERVE_REPS = 11  # timed forwards per (dtype, B); small batches are host-bound and noisy
+SERVE_REPS = 7  # timed forwards per (dtype, B); small batches are host-bound and noisy
 BIG_BATCH = 128  # the batch the JAX package's serving benchmark runs, in bfloat16
 VIDEO_FRAMES, MOUTH_SIZE = 50, 88  # 2 s of 25 fps mouth-ROI frames
 CHANNELS = 64  # TDANet hid_chan: the depthwise convs' channels
@@ -105,12 +111,26 @@ DW_LAUNCHES = REPEATS * sum(DW_PLANES.values())  # 40 per forward
 DW_SMALL = [((2, 5, 33, 17), (3, 3), ((1, 1), (1, 1))),
             ((3, 4, 19, 40), (2, 3), ((0, 1), (1, 1))),
             ((2, 3, 21, 9), (7, 2), ((3, 3), (0, 1)))]
+# K3 edge cases, forward and dx: (shape, kernel, pads, offset): odd F (129,
+# 7), T not a multiple of the band's rows, B*C = 1, x a contiguous slice at
+# an odd element offset, uneven pads, other kernels (7x2: the generic one)
+DW_EDGE = [((2, 3, 45, 129), (4, 4), ((1, 2), (1, 2)), 0),
+           ((2, 3, 45, 7), (4, 4), ((2, 1), (2, 1)), 1),
+           ((1, 1, 50, 129), (4, 4), ((0, 3), (0, 3)), 3),
+           ((1, 1, 251, 129), (4, 4), ((1, 2), (1, 2)), 1),
+           ((3, 2, 37, 64), (3, 3), ((1, 1), (1, 1)), 0),
+           ((2, 5, 21, 9), (2, 3), ((0, 1), (1, 1)), 1),
+           ((2, 3, 21, 9), (7, 2), ((3, 3), (0, 1)), 0)]
+# K2 edge cases, forward and backward: (L, rows, k, ndir, offset); odd rows
+# and a slice at an odd offset take the narrow kernel in bfloat16
+SRU_EDGE = [(L, rows, k, ndir, 0) for L in (1, 2) for rows in (125, 63, 500)
+            for k in (3, 4) for ndir in (1, 2)] + [(57, 500, 3, 2, 1), (57, 125, 4, 2, 0)]
 PROFILE_ITERS, PROFILE_TOP = 3, 6  # profiled forwards per (dtype, B); kernels listed
 PROFILE_CATEGORIES = [  # kernel name regexes, first match wins
     ("sru_kernel", r"sru_stack_layer"),
     ("sru_train_kernel", r"sru_train"),
     ("sru_direction_kernel", r"sru_direction"),
-    ("dw_conv_kernel", r"dw_conv_(sliding|generic)"),
+    ("dw_conv_kernel", r"dw_conv_(band|generic)"),
     ("fft", r"fft"),
     ("softmax", r"softmax"),
     ("norm_reduce", r"norm|reduce|welford|moments"),
@@ -119,6 +139,9 @@ PROFILE_CATEGORIES = [  # kernel name regexes, first match wins
     ("copy_layout", r"copy|cat|transpose|permute|pad|upsample|index|gather|scatter"),
     ("elementwise", r"elementwise|vectorized|unrolled|prelu|sigmoid|relu|add|mul"),
 ]
+# the kernel categories a serving forward and a train step launch
+SERVING_CATEGORIES = ("sru_kernel", "dw_conv_kernel")
+TRAIN_CATEGORIES = ("sru_train_kernel", "dw_conv_kernel")
 SAMPLES, LIP_CHANNELS, LIP_FRAMES = 32000, 512, 50
 # bf16 kernel vs the plain version on the same bf16 inputs: both carry and
 # compute in float32 and round once, so they differ by one bf16 ulp where
@@ -127,16 +150,27 @@ SAMPLES, LIP_CHANNELS, LIP_FRAMES = 32000, 512, 50
 BF16_RTOL, BF16_ATOL = 2.0 ** -7, 1e-5
 
 
+# cycles of the sleep kernel that timed launches queue behind: ~6 ms, more
+# than the host takes to launch 20 wrapper calls
+QUEUE_CYCLES = 10_000_000
+
+
 def fail(msg):
     raise RuntimeError(msg)
 
 
 def event_ms(fn, reps, warmup=2):
+    """Device ms per call of ``fn``: CUDA events around ``reps`` calls that
+    queue behind a sleep kernel, so the card runs them back to back and the
+    host's time to launch them (tens of us per wrapper call, more than a
+    small kernel takes) is not counted."""
     import torch
 
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(QUEUE_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -371,6 +405,7 @@ def check_dw_conv_kernel():
     if not ok or not dw_err <= dw_tol:
         fail("dw_conv2d_same backward disagrees with autograd through the plain version")
 
+    check_dw_conv_edges(gen, max_err)
     print(f"dw_conv2d_same: max_abs_err float32 {max_err[torch.float32]} "
           f"(tol 1e-5 + 1e-5*|ref|), bfloat16 {max_err[torch.bfloat16]} "
           f"(tol {BF16_ATOL} + {BF16_RTOL}*|ref|)")
@@ -381,6 +416,43 @@ def check_dw_conv_kernel():
     print(f"dw_conv2d_same per B=16 float32 forward ({DW_LAUNCHES} launches): "
           + json.dumps(out))
     return out
+
+
+def check_dw_conv_edges(gen, max_err):
+    """K3's forward and its dx (the autograd Function's backward, which runs
+    the kernel on dy with the flipped kernel) against the plain version at
+    the ``DW_EDGE`` shapes, both dtypes; x is a contiguous slice of a larger
+    tensor at ``offset`` elements."""
+    import torch
+
+    _, _, kdw, _ = kernel_modules()
+    for shape, kernel, pads, offset in DW_EDGE:
+        (lo_t, hi_t), (lo_f, hi_f) = pads
+        dx_pads = ((kernel[0] - 1 - lo_t, kernel[0] - 1 - hi_t),
+                   (kernel[1] - 1 - lo_f, kernel[1] - 1 - hi_f))
+        for dtype in (torch.float32, torch.bfloat16):
+            n = math.prod(shape)
+            x = torch.randn(n + offset, generator=gen, device="cuda").to(dtype)[offset:]
+            x = x.view(shape).requires_grad_()
+            dy = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            w = torch.randn((shape[1], 1, *kernel), generator=gen, device="cuda")
+            before = kdw.launches
+            y = kdw.dw_conv2d_same(x, w, pads)
+            y.backward(dy)
+            torch.cuda.synchronize()
+            if kdw.launches - before != 2:
+                fail(f"dw_conv2d_same edge x={shape}: {kdw.launches - before} launches, want 2")
+            with torch.no_grad():
+                ok, err = tolerance_ok(y, kdw.dw_conv2d_same_ref(x, w, pads), dtype)
+                dx_ok, dx_err = tolerance_ok(x.grad, kdw.dw_conv2d_same_ref(
+                    dy, w.flip(2, 3), dx_pads), dtype)
+            print("dw_conv2d_same edge " + json.dumps({
+                "x": shape, "k": kernel, "pads": pads, "offset": offset,
+                "dtype": dtype_name(dtype), "max_abs_err": err, "dx_max_abs_err": dx_err}))
+            if not (ok and dx_ok):
+                fail(f"dw_conv2d_same edge x={shape} k={kernel} pads={pads} offset={offset} "
+                     f"{dtype}: max_abs_err {err}, dx {dx_err} out of tolerance")
+            max_err[dtype] = max(max_err[dtype], err, dx_err)
 
 
 def check_sru_direction_kernel():
@@ -574,10 +646,12 @@ def category(name):
                 "other")
 
 
-def profile_line(label, fn, iters):
+def profile_line(label, fn, iters, launched):
     """``torch.profiler`` over ``iters`` calls of ``fn`` (after one warm-up
     call); prints one ``profile`` line. Device busy time is the sum of
-    kernel times (the port runs on one stream)."""
+    kernel times (the port runs on one stream). Fails unless each category
+    in ``launched``, the kernels ``fn`` launches, shows device time: a
+    renamed kernel would otherwise fall silently into another category."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -608,6 +682,9 @@ def profile_line(label, fn, iters):
         "by_category_ms": dict(by_cat.most_common()),
         "top_kernels_ms": [[n[:80], ms] for n, ms in kernels.most_common(PROFILE_TOP)],
     }))
+    missing = [cat for cat in launched if not by_cat.get(cat, 0.0) > 0.0]
+    if missing:
+        fail(f"profile {label}: no device time in {missing}, whose kernels it launched")
 
 
 def profile_serving(model, video, requests, frame_requests):
@@ -621,12 +698,13 @@ def profile_serving(model, video, requests, frame_requests):
     for dtype in (torch.float32, torch.bfloat16):
         for B, (mix, mouth) in requests.items():
             profile_line({"dtype": dtype_name(dtype), "B": B},
-                         lambda: separate(model, mix, mouth, dtype=dtype), PROFILE_ITERS)
+                         lambda: separate(model, mix, mouth, dtype=dtype), PROFILE_ITERS,
+                         SERVING_CATEGORIES)
     for dtype, B in ((torch.float32, 16), (torch.bfloat16, BIG_BATCH)):
         mix, frames = frame_requests[B]
         profile_line({"from": "frames", "dtype": dtype_name(dtype), "B": B},
                      lambda: separate(model, mix, frames, video_model=video, dtype=dtype),
-                     PROFILE_ITERS if B <= 16 else 1)
+                     PROFILE_ITERS if B <= 16 else 1, SERVING_CATEGORIES)
 
 
 def tolerance_ok(got, want, dtype):
@@ -730,6 +808,7 @@ def check_sru_train_kernel():
                         acc["bytes_ms"] += n * bytes_ms
                         acc["ops_ms"] += n * ops_ms
                 del sets, cs, u, skip, dh, h, c, got_b, want_b
+    check_sru_train_edges(gen)
     out = {}
     for which, acc in per_step.items():
         row = {"max_abs_err": max_err[which], "ms": acc["ms"], "plain_ms": acc["plain_ms"],
@@ -738,6 +817,61 @@ def check_sru_train_kernel():
         print(f"sru_train_{which} per B=16 float32 step: " + json.dumps(row))
         out[which] = row
     return out
+
+
+def check_sru_train_edges(gen):
+    """K2's forward and backward against their plain versions at the
+    ``SRU_EDGE`` shapes, both dtypes: the forward within ``tolerance_ok``;
+    the gradients within 2e-4*max(1, max|ref|), except bfloat16 du and
+    dskip, which are rounded to bfloat16 (one ulp is 2^-8 of the value) and
+    take ``tolerance_ok``'s one to two ulps. ``offset`` > 0 makes every
+    operand a slice at that element offset."""
+    import torch
+
+    from rtfs_net_tpu_torch.ops.kernels import sru_train as ktrain
+
+    def operand(shape, dtype, offset, scale=1.0):
+        flat = scale * torch.randn(math.prod(shape) + offset, generator=gen, device="cuda")
+        return flat.to(dtype)[offset:].view(shape)
+
+    for L, rows, k, ndir, offset in SRU_EDGE:
+        O = H * ndir
+        for dtype in (torch.float32, torch.bfloat16):
+            u = operand((L, k * O, rows), dtype, offset)
+            skip = operand((L, O, rows), dtype, offset) if k == 3 else None
+            dh = operand((L, O, rows), dtype, offset)
+            v, b = (0.5 * torch.randn(2 * O, generator=gen, device="cuda") for _ in range(2))
+            kw = dict(H=H, k=k, ndir=ndir)
+            before = (ktrain.forward_launches, ktrain.backward_launches)
+            h, c = ktrain.sru_train_forward(u, skip, v, b, **kw)
+            if offset:  # the backward's c a slice at the offset too
+                c = operand(c.shape, dtype, offset).copy_(c)
+            got = ktrain.sru_train_backward(u, skip, c, v, b, dh, **kw)
+            torch.cuda.synchronize()
+            launched = (ktrain.forward_launches - before[0], ktrain.backward_launches - before[1])
+            if launched != (1, 1):
+                fail(f"sru_train edge L={L} rows={rows}: launches {launched}")
+            want_h, want_c = ktrain.sru_train_forward_ref(u, skip, v, b, **kw)
+            want = ktrain.sru_train_backward_ref(u, skip, c, v, b, dh, **kw)
+            errs, bad = {}, []
+            for part, g, w in (("h", h, want_h), ("c", c, want_c)):
+                ok, errs[part] = tolerance_ok(g, w, dtype)
+                bad += [] if ok else [part]
+            for part, g, w in zip(("du", "dskip", "dv", "db"), got, want):
+                if w is None:
+                    continue
+                if dtype == torch.bfloat16 and part in ("du", "dskip"):
+                    ok, errs[part] = tolerance_ok(g, w, dtype)
+                else:
+                    errs[part] = float((g.float() - w.float()).abs().max())
+                    ok = errs[part] <= 2e-4 * max(1.0, float(w.float().abs().max()))
+                bad += [] if ok else [part]
+            print("sru_train edge " + json.dumps({
+                "L": L, "rows": rows, "k": k, "ndir": ndir, "offset": offset,
+                "dtype": dtype_name(dtype), "errors": errs}))
+            if bad:
+                fail(f"sru_train edge L={L} rows={rows} k={k} ndir={ndir} offset={offset} "
+                     f"{dtype}: {bad} out of tolerance ({errs})")
 
 
 def rtfs4_conf(dropout=None):
@@ -865,7 +999,7 @@ def profile_training(base):
     batch = train_batch(16, torch.Generator(device="cuda").manual_seed(6))
     gen = torch.Generator(device="cuda").manual_seed(7)
     profile_line({"train": True, "dtype": "bfloat16", "B": 16},
-                 lambda: system.train_step(batch, generator=gen), 1)
+                 lambda: system.train_step(batch, generator=gen), 1, TRAIN_CATEGORIES)
 
 
 def main():

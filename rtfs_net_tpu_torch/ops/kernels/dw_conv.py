@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Sequence, Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -35,11 +35,62 @@ Pads = Tuple[Tuple[int, int], Tuple[int, int]]
 # forward calls and, under autograd, the dx of each backward
 launches = 0
 
+# the band kernel's geometry (csrc/dw_conv.cu)
+STRIP = 8             # output rows per thread task
+TARGET_THREADS = 256  # threads per block the plan aims at: of 64, 128 and
+                      # 256, the one faster than the first K3 at every
+                      # main-path shape on an H100
+MAX_THREADS = 256
+MAX_SMEM = 232448     # an H100 block's dynamic shared memory, bytes
+
+
+def columns(itemsize: int) -> int:
+    """Adjacent output columns per thread task (``cols`` in the source)."""
+    return 5 if itemsize == 4 else 6
+
+
+class BandPlan(NamedTuple):
+    rows: int     # R, output rows per band; 0 takes the generic kernel
+    threads: int  # per block
+    smem: int     # dynamic shared-memory bytes per block
+
+
+def _round_up(a: int, b: int) -> int:
+    return -(-a // b) * b
+
+
+@functools.lru_cache(maxsize=None)
+def band_plan(T: int, Fq: int, k_t: int, k_f: int, itemsize: int) -> BandPlan:
+    """The band kernel's launch geometry for a (.., T, F) plane. A thread
+    task is ``columns`` adjacent outputs of ``STRIP`` rows; a band is s
+    strips of R = STRIP·s rows, with one thread per task, s as large as
+    ``TARGET_THREADS`` threads allow (and no larger than T needs). Shared memory
+    holds two buffers of R + k_t - 1 input rows (this band's and the
+    next's) and one of R output rows, each with a 16-byte chunk of slack at
+    both ends (``in_elems`` and ``out_elems`` in the source); s is halved
+    until that fits. k outside 2..5, or a one-strip band that does not fit,
+    takes the generic kernel (rows 0)."""
+    if not (2 <= k_t <= 5 and 2 <= k_f <= 5):
+        return BandPlan(0, 128, 0)
+    vec = 16 // itemsize
+    groups = -(-Fq // columns(itemsize))
+    strips = max(1, min(TARGET_THREADS // groups, -(-T // STRIP)))
+    while True:
+        R = STRIP * strips
+        in_elems = _round_up((R + k_t - 1) * Fq + 2 * vec, vec)
+        out_elems = _round_up(R * Fq + 2 * vec, vec)
+        smem = (2 * in_elems + out_elems) * itemsize
+        if smem <= MAX_SMEM:
+            return BandPlan(R, min(MAX_THREADS, _round_up(strips * groups, 32)), smem)
+        if strips == 1:
+            return BandPlan(0, 128, 0)
+        strips //= 2
+
 
 @functools.lru_cache(maxsize=None)
 def _fn():
     fn = build.load(SOURCE).rtfs_dw_conv2d_same
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -96,9 +147,10 @@ def _stencil(x, w, pads: Pads):
     x = x.contiguous()
     wf = w.detach().float().reshape(C, k_t * k_f).contiguous()
     y = torch.empty_like(x)
+    plan = band_plan(T, Fq, k_t, k_f, x.element_size())
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), wf.data_ptr(), y.data_ptr(), B * C, C, T, Fq, k_t, k_f,
-                 pads[0][0], pads[1][0], _DTYPES[x.dtype],
+                 pads[0][0], pads[1][0], plan.rows, plan.threads, _DTYPES[x.dtype],
                  torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"dw_conv2d_same kernel launch failed: CUDA error {err}")

@@ -26,13 +26,51 @@ SOURCE = "sru_train.cu"
 forward_launches = 0
 backward_launches = 0
 
+THREADS, WARPS = 128, 4  # per block; the grid is (ceil(rows / THREADS), O)
+SMS = 132                 # an H100's SMs, for planning where no card is asked
+SMEM_PER_SM = 228 * 1024  # shared memory an SM gives its blocks, 1 KB each reserved
+# bytes of loads each SM should keep in flight: 3.35 TB/s over 132 SMs is
+# ~25 KB per us, and a loaded HBM answers in one to two us
+IN_FLIGHT_BYTES = 64 * 1024
+DEPTHS = {"forward": (8, 16, 32), "backward": (8, 16)}
+OPERANDS = {"forward": 4, "backward": 6}  # copied per step: u0, u1, u2, skip[, dh, c]
+
+
+@functools.lru_cache(maxsize=None)
+def ring_depth(rows: int, O: int, itemsize: int, which: str, aligned: bool = True,
+               sms: int = SMS) -> int:
+    """D, the steps in each warp's shared-memory ring (csrc/sru_train.cu),
+    or 0 for the narrow kernel. A bfloat16 ring copies 4-byte words of two
+    rows, so odd rows or an operand that does not start 4-byte aligned
+    (``aligned`` False) take the narrow kernel. Otherwise: the depths in
+    ``DEPTHS[which]`` at which every block of the launch fits in shared
+    memory at once (ceil(blocks / sms) per SM, each D steps of the operands
+    of 128 rows), and of those the least that keeps ``IN_FLIGHT_BYTES`` in
+    flight per SM, else the deepest; the shallowest if none fits."""
+    if itemsize == 2 and (rows % 2 or not aligned):
+        return 0
+    per_sm = -(-(-(-rows // THREADS) * O) // sms)
+    stage = WARPS * OPERANDS[which] * 32 * itemsize  # a block's bytes per step
+    depths = DEPTHS[which]
+    fits = [d for d in depths if per_sm * (d * stage + 1024) <= SMEM_PER_SM] or [depths[0]]
+    return next((d for d in fits if per_sm * d * stage >= IN_FLIGHT_BYTES), fits[-1])
+
+
+def _aligned(*tensors) -> bool:
+    return all(t is None or t.data_ptr() % 4 == 0 for t in tensors)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
 
 @functools.lru_cache(maxsize=None)
 def _fns():
     lib = build.load(SOURCE)
     fwd, bwd = lib.rtfs_sru_train_forward, lib.rtfs_sru_train_backward
-    fwd.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    bwd.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fwd.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    bwd.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fwd.restype = bwd.restype = ctypes.c_int
     return fwd, bwd
 
@@ -58,10 +96,12 @@ def sru_train_forward(u, skip, v, b, *, H: int, k: int, ndir: int):
     c = torch.empty_like(h)
     v = v.float().contiguous()
     b = b.float().contiguous()
+    depth = ring_depth(rows, O, u.element_size(), "forward", _aligned(u, skip if k == 3 else None),
+                       _sms(u.device.index or 0))
     with torch.cuda.device(u.device):
         err = _fns()[0](u.data_ptr(), _ptr(skip) if k == 3 else None, v.data_ptr(),
                         b.data_ptr(), h.data_ptr(), c.data_ptr(),
-                        L, rows, H, k, ndir, _DTYPES[u.dtype],
+                        L, rows, H, k, ndir, depth, _DTYPES[u.dtype],
                         torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"sru_train forward kernel launch failed: CUDA error {err}")
@@ -86,10 +126,12 @@ def sru_train_backward(u, skip, c, v, b, dh, *, H: int, k: int, ndir: int):
     part = torch.empty((4, O, rows), dtype=torch.float32, device=u.device)
     v = v.float().contiguous()
     b = b.float().contiguous()
+    depth = ring_depth(rows, O, u.element_size(), "backward", _aligned(u, skip if k == 3 else None, c, dh),
+                       _sms(u.device.index or 0))
     with torch.cuda.device(u.device):
         err = _fns()[1](u.data_ptr(), _ptr(skip) if k == 3 else None, c.data_ptr(),
                         v.data_ptr(), b.data_ptr(), dh.data_ptr(), du.data_ptr(),
-                        _ptr(dskip), part.data_ptr(), L, rows, H, k, ndir,
+                        _ptr(dskip), part.data_ptr(), L, rows, H, k, ndir, depth,
                         _DTYPES[u.dtype], torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"sru_train backward kernel launch failed: CUDA error {err}")

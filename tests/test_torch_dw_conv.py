@@ -49,13 +49,32 @@ def _library(x, w, pads):
     return F.conv2d(F.pad(x, (lo_f, hi_f, lo_t, hi_t)), w, groups=x.shape[1])
 
 
-@pytest.mark.parametrize("B,C,T,Fq,k_t,k_f", CASES)
-def test_plain_version_matches_pallas_kernel(rng, B, C, T, Fq, k_t, k_f):
-    pads = _pads(k_t, k_f)
+# the card's edge cases (chip_smoke.py's DW_EDGE), small: (B, C, T, F, k_t,
+# k_f, pads, offset): B*C = 1 with odd F = 129 and T not a multiple of a
+# band, F = 7, uneven pads, the 7x2 kernel; x a slice at an odd offset
+EDGE_CASES = [
+    (1, 1, 13, 129, 4, 4, ((1, 2), (1, 2)), 1),
+    (2, 3, 11, 7, 4, 4, ((2, 1), (2, 1)), 0),
+    (2, 2, 10, 9, 4, 4, ((0, 3), (0, 3)), 3),
+    (2, 2, 9, 10, 7, 2, ((3, 3), (0, 1)), 0),
+]
+
+
+@pytest.mark.parametrize(
+    "B,C,T,Fq,k_t,k_f,pads,offset",
+    [pytest.param(*case, None, 0, id="-".join(map(str, case))) for case in CASES]
+    + [pytest.param(*case, id="edge-{}-{}-{}-{}-{}x{}-{}-off{}".format(
+        *case[:6], "".join(str(p) for pad in case[6] for p in pad), case[7]))
+       for case in EDGE_CASES])
+def test_plain_version_matches_pallas_kernel(rng, B, C, T, Fq, k_t, k_f, pads, offset):
+    pads = pads or _pads(k_t, k_f)
     x, w = _inputs(rng, B, C, T, Fq, k_t, k_f)
     want = np.asarray(jax_dw_conv2d_same(jnp.asarray(x), jnp.asarray(w), pads))
     before = kdw.launches
-    tx, tw = torch.from_numpy(x), torch.from_numpy(w)
+    # x as a contiguous view at ``offset`` elements into a larger buffer
+    buf = np.zeros(x.size + offset, np.float32)
+    buf[offset:] = x.ravel()
+    tx, tw = torch.from_numpy(buf)[offset:].view(x.shape), torch.from_numpy(w)
     got = kdw.dw_conv2d_same(tx, tw, pads)
     assert kdw.launches == before  # CPU tensors never count as a launch
     assert got.shape == tx.shape and got.grad_fn is None
@@ -136,6 +155,33 @@ def test_rejects_bad_inputs(rng):
         kdw.dw_conv2d_same(x, w, ((3, -1), (1, 1)))
     with pytest.raises(TypeError):
         kdw.dw_conv2d_same(x.double(), w.double(), pads)
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+def test_band_plan_fits_and_covers_main_path_shapes(itemsize):
+    """Every main-path plane (any batch: the plan depends on (T, F) only)
+    takes the band kernel with a plan that fits an H100 block's shared
+    memory, whose bands cover all T rows, and whose block has a thread for
+    every task of a band (strips x column groups) in whole warps."""
+    for T, Fq in ((251, 129), (125, 64)):
+        plan = kdw.band_plan(T, Fq, 4, 4, itemsize)
+        groups = -(-Fq // kdw.columns(itemsize))
+        tasks = plan.rows // kdw.STRIP * groups
+        assert plan.rows > 0 and plan.rows % kdw.STRIP == 0
+        assert 0 < plan.smem <= kdw.MAX_SMEM == 232448
+        assert -(-T // plan.rows) * plan.rows >= T
+        assert plan.threads % 32 == 0 and tasks <= plan.threads <= kdw.MAX_THREADS
+        # two input buffers of R + 3 rows, one output buffer of R rows, each
+        # with up to a 16-byte chunk of slack at both ends
+        rows_smem = (2 * (plan.rows + 3) + plan.rows) * Fq * itemsize
+        assert rows_smem < plan.smem <= rows_smem + 3 * 3 * 16
+
+
+def test_band_plan_takes_the_generic_kernel_when_no_band_fits():
+    assert kdw.band_plan(50, 9, 7, 2, 4).rows == 0  # k outside 2..5
+    assert kdw.band_plan(20, 20000, 4, 4, 4).rows == 0  # one strip is > 227 KB
+    small = kdw.band_plan(45, 7, 4, 4, 2)  # one warp: two column groups, three strips
+    assert small.rows == 48 and small.threads == 32 and small.smem <= kdw.MAX_SMEM
 
 
 def test_gate_rejects_unsupported():

@@ -68,10 +68,18 @@ def _jax_direction(u0, u1, u2, sk, vf, vr, bf, br, dh, reverse):
     return h, c, jax.lax.cond(reverse, lambda: grads(True), lambda: grads(False))
 
 
-@pytest.mark.parametrize("k", [3, 4])
-@pytest.mark.parametrize("ndir", [1, 2])
-def test_plain_versions_match_pallas_kernel(rng, k, ndir):
-    a = _inputs(rng, k, ndir)
+# the card's edge shapes (chip_smoke.py's SRU_EDGE): (L, rows, k, ndir):
+# L = 1 and 2, rows 125 and 63 (odd) and 500
+EDGE_CASES = [(1, 125, 3, 1), (2, 63, 4, 2), (2, 500, 3, 2)]
+
+
+@pytest.mark.parametrize(
+    "k,ndir,L,ROWS",
+    [pytest.param(k, ndir, L, ROWS, id=f"{ndir}-{k}") for k in (3, 4) for ndir in (1, 2)]
+    + [pytest.param(k, ndir, L_, rows, id=f"edge-L{L_}-rows{rows}-k{k}-ndir{ndir}")
+       for L_, rows, k, ndir in EDGE_CASES])
+def test_plain_versions_match_pallas_kernel(rng, k, ndir, L, ROWS):
+    a = _inputs(rng, k, ndir, L, ROWS)
     O = H * ndir
     t = {n: None if x is None else torch.from_numpy(x) for n, x in a.items()}
     launches = (ktrain.forward_launches, ktrain.backward_launches)
@@ -142,6 +150,38 @@ def test_bf16_plain_versions_round_once(rng):
     for g, w in zip(got[2:], want[2:]):
         assert g.dtype == torch.float32
         torch.testing.assert_close(g, w, atol=0, rtol=0)
+
+
+def test_ring_depth_fits_main_path_launches():
+    """At the main path's shapes (rows 125·B and 64·B for B = 1, 4, 16, 64
+    channels) the ring takes a depth of ``DEPTHS`` at which all the
+    launch's blocks fit an SM's shared memory at once, in both dtypes; only
+    odd rows in bfloat16 take the narrow kernel."""
+    O = 64
+    for B in (1, 4, 16):
+        for rows in (125 * B, 64 * B):
+            for itemsize in (4, 2):
+                for which in ("forward", "backward"):
+                    depth = ktrain.ring_depth(rows, O, itemsize, which)
+                    if itemsize == 2 and rows % 2:
+                        assert depth == 0
+                        continue
+                    assert depth in ktrain.DEPTHS[which]
+                    per_sm = -(-(-(-rows // 128) * O) // ktrain.SMS)
+                    stage = 4 * ktrain.OPERANDS[which] * 32 * itemsize
+                    assert per_sm * (depth * stage + 1024) <= ktrain.SMEM_PER_SM
+
+
+def test_ring_depth_takes_the_narrow_kernel_when_misaligned():
+    """A bfloat16 ring copies 4-byte words of two rows: odd rows or an
+    operand that starts off a 4-byte boundary take the narrow kernel;
+    float32 rows are always aligned."""
+    assert ktrain.ring_depth(500, 64, 2, "forward", aligned=False) == 0
+    assert ktrain.ring_depth(63, 64, 2, "backward") == 0
+    assert ktrain.ring_depth(63, 64, 4, "backward") > 0
+    assert ktrain.ring_depth(500, 64, 2, "forward") > 0
+    t = torch.zeros(9, dtype=torch.bfloat16)
+    assert ktrain._aligned(t, None) and not ktrain._aligned(t[1:])
 
 
 def test_backward_rejects_bad_inputs(rng):
