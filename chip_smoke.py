@@ -13,7 +13,11 @@ Phases (any failure exits non-zero before the final line):
    ``nvcc`` each, started together, into
    ``rtfs_net_tpu_torch/csrc/build/``, timed.
 3. kernel K1: against its plain PyTorch version on the card, at the
-   shapes the B=16 serving forward gives it, with times and the bound.
+   shapes the serving forward gives it at B = 1, 4, 16 (float32 and
+   bfloat16) and B = 128 (bfloat16), with times, the bound and sums per
+   forward; and at edge shapes (``SRU_EDGE``: L = 1 and 2, rows 125, 63
+   and 500, k = 3 and 4, one and two directions, a slice at an odd offset)
+   in both dtypes. Fails unless both the ring and the narrow kernel ran.
 4. kernel K3: against its plain version at (B, 64, 251, 129) and
    (B, 64, 125, 64) for B = 16 and 128 with the 4x4 kernel and pads (1, 2)
    of the main path, and at small shapes with a 3x3, a 2x3 and a 7x2
@@ -22,9 +26,12 @@ Phases (any failure exits non-zero before the final line):
    against autograd through the plain version; edge cases (odd F, T not a
    multiple of the band, B*C = 1, x a slice at an odd offset, uneven pads,
    other kernels), forward and dx, in both dtypes.
-5. kernel K4: against its plain version at (57, 2000, 32) and
-   (118, 1024, 32), both directions, on slices of one projection, float32
-   and bfloat16, with times and the bound.
+5. kernel K4: against its plain version at the serving shapes of B = 1,
+   4, 16 ((57, 125 B, 32) and (118, 64 B, 32)), both directions, on slices
+   of one projection, float32 and bfloat16, with times and the bound; and
+   at edge shapes (``SRU_DIR_EDGE``: L = 1 and 2, rows 125, 63 and 500, odd
+   H, slices at odd offsets). Fails unless both the ring and the narrow
+   kernel ran.
 6. serving: RTFS-Net-4 at full width (random weights from seed 0) answers
    requests of 2 s mixtures plus (B, 512, 50) lip embeddings at B = 1, 4,
    16 through ``separate()``; K1 must launch exactly 32 times and K3
@@ -92,10 +99,10 @@ SRU_OPS_PER_ELEMENT = 22
 # sums (6), the carry (5)
 SRU_BWD_OPS_PER_ELEMENT = 41
 H = 32
-SRU_SHAPES = [(57, 125 * 16), (118, 64 * 16)]  # (L, rows): F pass, T pass at B=16
+SRU_PASSES = [(57, 125), (118, 64)]  # (L, rows per utterance): the F pass, the T pass
 TRAIN_BATCHES = (4, 16)
 # (L, rows) of the F and T passes at each train batch
-TRAIN_SHAPES = [(L, per_utt * B) for B in TRAIN_BATCHES for L, per_utt in ((57, 125), (118, 64))]
+TRAIN_SHAPES = [(L, per_utt * B) for B in TRAIN_BATCHES for L, per_utt in SRU_PASSES]
 TRAIN_STEPS = 6  # timed steps per (dtype, B), after one counted step
 SRU_LAYERS = {4: 1, 3: 3}  # layers per 4-layer stack with k=4 and k=3 chunks
 REPEATS = 4                # TDANet repeats per forward (1 fused + 3 audio-only)
@@ -121,10 +128,15 @@ DW_EDGE = [((2, 3, 45, 129), (4, 4), ((1, 2), (1, 2)), 0),
            ((3, 2, 37, 64), (3, 3), ((1, 1), (1, 1)), 0),
            ((2, 5, 21, 9), (2, 3), ((0, 1), (1, 1)), 1),
            ((2, 3, 21, 9), (7, 2), ((3, 3), (0, 1)), 0)]
-# K2 edge cases, forward and backward: (L, rows, k, ndir, offset); odd rows
-# and a slice at an odd offset take the narrow kernel in bfloat16
+# K1 and K2 edge cases (K2 forward and backward): (L, rows, k, ndir,
+# offset); odd rows and a slice at an odd offset take the narrow kernel in
+# bfloat16
 SRU_EDGE = [(L, rows, k, ndir, 0) for L in (1, 2) for rows in (125, 63, 500)
             for k in (3, 4) for ndir in (1, 2)] + [(57, 500, 3, 2, 1), (57, 125, 4, 2, 0)]
+# K4 edge cases: (L, rows, H, offset) of slices of one (L, rows, 4, 2H)
+# projection; odd H and an odd offset take the narrow kernel in bfloat16
+SRU_DIR_EDGE = [(L, rows, H, 0) for L in (1, 2) for rows in (125, 63, 500)] + [
+    (57, 125, 33, 0), (57, 63, 7, 0), (57, 500, 32, 1), (118, 64, 32, 3)]
 PROFILE_ITERS, PROFILE_TOP = 3, 6  # profiled forwards per (dtype, B); kernels listed
 PROFILE_CATEGORIES = [  # kernel name regexes, first match wins
     ("sru_kernel", r"sru_stack_layer"),
@@ -245,37 +257,52 @@ def sru_inputs(L, rows, k, dtype, gen, copies):
     return sets, v, b
 
 
+def sru_tolerance_ok(got, want, dtype):
+    """K1's check: float32 within 1e-5 absolute, bfloat16 ``BF16_ATOL`` +
+    ``BF16_RTOL``*|ref|; and finite."""
+    import torch
+
+    err = (got.float() - want.float()).abs()
+    if dtype == torch.float32:
+        ok = float(err.max()) <= 1e-5
+    else:
+        ok = bool((err <= BF16_ATOL + BF16_RTOL * want.float().abs()).all())
+    return ok and bool(torch.isfinite(got).all()), float(err.max())
+
+
 def check_sru_kernel():
-    """The SRU layer kernel against its plain version at the serving shapes."""
+    """The SRU layer kernel against its plain version at the shapes the
+    serving forward gives it at B = 1, 4, 16 (both dtypes) and B = 128
+    (bfloat16), with times and bounds (the plain version timed at B = 16),
+    then at the ``SRU_EDGE`` shapes. Fails unless both the ring and the
+    narrow kernel ran. Returns the sums over the 32 launches of a B=16
+    float32 forward."""
     import torch
 
     from rtfs_net_tpu_torch.ops.kernels import sru as ksru
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    per_forward = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes_ms": 0.0,
-                   "ops_ms": 0.0}
+    sums = collections.defaultdict(collections.Counter)  # per (B, dtype) forward
     max_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    for L, rows in SRU_SHAPES:
-        for k in (4, 3):
-            for dtype in (torch.float32, torch.bfloat16):
+    depths = set()
+    O = 2 * H
+    for B in SERVE_BATCHES + (BIG_BATCH,):
+        for (L, per_utt), k in itertools.product(SRU_PASSES, (4, 3)):
+            rows = per_utt * B
+            for dtype in (torch.bfloat16,) if B == BIG_BATCH else (torch.float32, torch.bfloat16):
                 item = torch.tensor([], dtype=dtype).element_size()
-                O = 2 * H
                 nbytes = (k * O + O + (O if k == 3 else 0)) * L * rows * item
                 # rotate through input copies totalling > 100 MB so each
                 # launch reads from HBM, not from the 50 MB L2
                 copies = 1 + int(100e6 // (nbytes - O * L * rows * item))
                 sets, v, b = sru_inputs(L, rows, k, dtype, gen, copies)
                 u, skip = sets[0]
+                depths.add(ksru.launch_plan(rows, O, item))
                 got = ksru.sru_stack_layer(u, skip, v, b, H=H, k=k, ndir=2)
                 torch.cuda.synchronize()
                 want = ksru.sru_stack_layer_ref(u, skip, v, b, H=H, k=k, ndir=2)
-                err = (got.float() - want.float()).abs()
-                max_abs = float(err.max())
-                if dtype == torch.float32:
-                    ok = max_abs <= 1e-5
-                else:
-                    ok = bool((err <= BF16_ATOL + BF16_RTOL * want.float().abs()).all())
-                if not ok or not bool(torch.isfinite(got).all()):
+                ok, max_abs = sru_tolerance_ok(got, want, dtype)
+                if not ok:
                     fail(f"sru_stack_layer L={L} rows={rows} k={k} {dtype}: "
                          f"max_abs_err {max_abs} out of tolerance")
                 max_err[dtype] = max(max_err[dtype], max_abs)
@@ -286,32 +313,89 @@ def check_sru_kernel():
                     ksru.sru_stack_layer(uu, ss, v, b, H=H, k=k, ndir=2)
 
                 ms = event_ms(kernel, reps=20)
-                plain_ms = event_ms(
-                    lambda: ksru.sru_stack_layer_ref(u, skip, v, b, H=H, k=k, ndir=2),
-                    reps=2, warmup=1)
                 bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
                 ops_ms = SRU_OPS_PER_ELEMENT * L * O * rows / FP32_OPS_PER_S * 1e3
-                bound_ms = max(bytes_ms, ops_ms)
-                row = {"L": L, "rows": rows, "k": k, "dtype": str(dtype).split(".")[-1],
-                       "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
-                       "bound_ms": bound_ms,
+                row = {"B": B, "L": L, "rows": rows, "k": k, "dtype": dtype_name(dtype),
+                       "depth": ksru.launch_plan(rows, O, item), "max_abs_err": max_abs,
+                       "ms": ms, "bound_ms": max(bytes_ms, ops_ms),
                        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                        "GB_per_s": nbytes / ms / 1e6}
+                if B == 16:
+                    row["plain_ms"] = event_ms(
+                        lambda: ksru.sru_stack_layer_ref(u, skip, v, b, H=H, k=k, ndir=2),
+                        reps=2, warmup=1)
                 print("sru_stack_layer " + json.dumps(row))
-                if dtype == torch.float32:
-                    n = REPEATS * SRU_LAYERS[k]
-                    per_forward["ms"] += n * ms
-                    per_forward["plain_ms"] += n * plain_ms
-                    per_forward["bound_ms"] += n * bound_ms
-                    per_forward["bytes_ms"] += n * bytes_ms
-                    per_forward["ops_ms"] += n * ops_ms
-                del sets, u, skip, got, want, err
+                n = REPEATS * SRU_LAYERS[k]
+                acc = sums[(B, dtype_name(dtype))]
+                for key, value in (("ms", ms), ("plain_ms", row.get("plain_ms", 0.0)),
+                                   ("bytes_ms", bytes_ms), ("ops_ms", ops_ms)):
+                    acc[key] += n * value
+                del sets, u, skip, got, want
+    check_sru_edges(gen, max_err, depths)
+    if not (0 in depths and depths - {0}):
+        fail(f"sru_stack_layer: launch plans {sorted(depths)} did not run both the ring "
+             "and the narrow kernel")
     print(f"sru_stack_layer: max_abs_err float32 {max_err[torch.float32]} "
           f"(tol 1e-5), bfloat16 {max_err[torch.bfloat16]} "
-          f"(tol {BF16_ATOL} + {BF16_RTOL}*|ref|)")
-    print("sru_stack_layer per B=16 float32 forward (32 launches): " + json.dumps(per_forward))
-    bound_by = "bytes" if per_forward.pop("bytes_ms") >= per_forward.pop("ops_ms") else "operations"
-    return {"max_abs_err": max_err[torch.float32], "bound_by": bound_by, **per_forward}
+          f"(tol {BF16_ATOL} + {BF16_RTOL}*|ref|); ring depths run {sorted(depths)}")
+    return forward_sums("sru_stack_layer", sums, max_err, 32)
+
+
+def forward_sums(name, sums, max_err, launches):
+    """Prints a kernel's sums over the launches of one forward per (B,
+    dtype), from ``sums[(B, dtype)]`` of ms, plain_ms (timed at B = 16
+    only), bytes_ms and ops_ms; returns the B=16 float32 forward's."""
+    import torch
+
+    out = {}
+    for (B, dtype), acc in sums.items():
+        bytes_ms, ops_ms = acc.pop("bytes_ms"), acc.pop("ops_ms")
+        if B != 16:
+            acc.pop("plain_ms")
+        out[(B, dtype)] = {"max_abs_err": max_err[getattr(torch, dtype)], **acc,
+                           "bound_ms": max(bytes_ms, ops_ms),
+                           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+        print(f"{name} per B={B} {dtype} forward ({launches} launches): "
+              + json.dumps(out[(B, dtype)]))
+    return out[(16, "float32")]
+
+
+def check_sru_edges(gen, max_err, depths):
+    """K1 against its plain version at the ``SRU_EDGE`` shapes, both dtypes,
+    with K1's tolerance; ``offset`` > 0 makes u and skip slices at that
+    element offset. Adds each launch's ring depth to ``depths``."""
+    import torch
+
+    from rtfs_net_tpu_torch.ops.kernels import sru as ksru
+
+    for L, rows, k, ndir, offset in SRU_EDGE:
+        O = H * ndir
+        for dtype in (torch.float32, torch.bfloat16):
+            u = edge_operand((L, k * O, rows), dtype, offset, gen)
+            skip = edge_operand((L, O, rows), dtype, offset, gen) if k == 3 else None
+            v, b = (0.5 * torch.randn(2 * O, generator=gen, device="cuda") for _ in range(2))
+            depth = ksru.launch_plan(rows, O, u.element_size(), ksru._aligned(u, skip))
+            depths.add(depth)
+            got = ksru.sru_stack_layer(u, skip, v, b, H=H, k=k, ndir=ndir)
+            torch.cuda.synchronize()
+            ok, err = sru_tolerance_ok(
+                got, ksru.sru_stack_layer_ref(u, skip, v, b, H=H, k=k, ndir=ndir), dtype)
+            print("sru_stack_layer edge " + json.dumps({
+                "L": L, "rows": rows, "k": k, "ndir": ndir, "offset": offset,
+                "dtype": dtype_name(dtype), "depth": depth, "max_abs_err": err}))
+            if not ok:
+                fail(f"sru_stack_layer edge L={L} rows={rows} k={k} ndir={ndir} "
+                     f"offset={offset} {dtype}: max_abs_err {err} out of tolerance")
+            max_err[dtype] = max(max_err[dtype], err)
+
+
+def edge_operand(shape, dtype, offset, gen):
+    """A contiguous ``shape`` tensor that starts ``offset`` elements into
+    its storage (odd offsets misalign a bfloat16 tensor's 4-byte words)."""
+    import torch
+
+    flat = torch.randn(math.prod(shape) + offset, generator=gen, device="cuda")
+    return flat.to(dtype)[offset:].view(shape)
 
 
 def dw_library(x, w, pads):
@@ -456,18 +540,22 @@ def check_dw_conv_edges(gen, max_err):
 
 
 def check_sru_direction_kernel():
-    """The per-direction SRU kernel against its plain version at the B=16
-    serving shapes, both directions, on the slices of one (L, rows, 4, O)
-    projection that the route gives it. Returns the sums over the 64
-    launches of a B=16 float32 forward."""
+    """The per-direction SRU kernel against its plain version at the serving
+    shapes of B = 1, 4, 16, both directions, both dtypes, on the slices of
+    one (L, rows, 4, O) projection that the route gives it, with times and
+    bounds (the plain version timed at B = 16); then at the ``SRU_DIR_EDGE``
+    shapes. Fails unless both the ring and the narrow kernel ran. Returns
+    the sums over the 64 launches of a B=16 float32 forward."""
     import torch
 
     _, _, _, kdir = kernel_modules()
     gen = torch.Generator(device="cuda").manual_seed(10)
     O = 2 * H
-    per_forward = collections.Counter()
+    sums = collections.defaultdict(collections.Counter)  # per (B, dtype) forward
     max_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    for L, rows in SRU_SHAPES:
+    depths = set()
+    for B, (L, per_utt) in itertools.product(SERVE_BATCHES, SRU_PASSES):
+        rows = per_utt * B
         for dtype in (torch.float32, torch.bfloat16):
             item = torch.tensor([], dtype=dtype).element_size()
             nbytes = 5 * L * rows * H * item
@@ -475,6 +563,7 @@ def check_sru_direction_kernel():
             us = [torch.randn((L, rows, 4, O), generator=gen, device="cuda").to(dtype)
                   for _ in range(copies)]
             gates = [0.5 * torch.randn(H, generator=gen, device="cuda") for _ in range(4)]
+            depths.add(kdir.launch_plan(rows, H, item))
             for reverse in (False, True):
                 sl = slice(H, O) if reverse else slice(0, H)
 
@@ -492,31 +581,61 @@ def check_sru_direction_kernel():
                 it = itertools.count()
                 ms = event_ms(lambda: kdir.sru_direction(*operands(us[next(it) % copies]),
                                                          *gates, reverse=reverse), reps=20)
-                plain_ms = event_ms(lambda: kdir.sru_direction_ref(
-                    *operands(us[0]), *gates, reverse=reverse), reps=2, warmup=1)
                 bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
                 ops_ms = SRU_OPS_PER_ELEMENT * L * rows * H / FP32_OPS_PER_S * 1e3
-                print("sru_direction " + json.dumps({
-                    "L": L, "rows": rows, "H": H, "reverse": reverse,
-                    "dtype": dtype_name(dtype), "max_abs_err": err, "ms": ms,
-                    "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
-                    "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-                    "GB_per_s": nbytes / ms / 1e6}))
-                if dtype == torch.float32:
-                    calls = REPEATS * sum(SRU_LAYERS.values())  # per direction
-                    for key, value in (("ms", ms), ("plain_ms", plain_ms),
-                                       ("bytes_ms", bytes_ms), ("ops_ms", ops_ms)):
-                        per_forward[key] += calls * value
+                row = {"B": B, "L": L, "rows": rows, "H": H, "reverse": reverse,
+                       "dtype": dtype_name(dtype), "depth": kdir.launch_plan(rows, H, item),
+                       "max_abs_err": err, "ms": ms, "bound_ms": max(bytes_ms, ops_ms),
+                       "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                       "GB_per_s": nbytes / ms / 1e6}
+                if B == 16:
+                    row["plain_ms"] = event_ms(lambda: kdir.sru_direction_ref(
+                        *operands(us[0]), *gates, reverse=reverse), reps=2, warmup=1)
+                print("sru_direction " + json.dumps(row))
+                calls = REPEATS * sum(SRU_LAYERS.values())  # per direction and pass
+                acc = sums[(B, dtype_name(dtype))]
+                for key, value in (("ms", ms), ("plain_ms", row.get("plain_ms", 0.0)),
+                                   ("bytes_ms", bytes_ms), ("ops_ms", ops_ms)):
+                    acc[key] += calls * value
             del us
+    check_sru_direction_edges(gen, max_err, depths)
+    if not (0 in depths and depths - {0}):
+        fail(f"sru_direction: launch plans {sorted(depths)} did not run both the ring "
+             "and the narrow kernel")
     print(f"sru_direction: max_abs_err float32 {max_err[torch.float32]} "
           f"(tol 1e-5 + 1e-5*|ref|), bfloat16 {max_err[torch.bfloat16]} "
-          f"(tol {BF16_ATOL} + {BF16_RTOL}*|ref|)")
-    bytes_ms, ops_ms = per_forward.pop("bytes_ms"), per_forward.pop("ops_ms")
-    out = {"max_abs_err": max_err[torch.float32], **per_forward,
-           "bound_ms": max(bytes_ms, ops_ms),
-           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
-    print("sru_direction per B=16 float32 forward (64 launches): " + json.dumps(out))
-    return out
+          f"(tol {BF16_ATOL} + {BF16_RTOL}*|ref|); ring depths run {sorted(depths)}")
+    return forward_sums("sru_direction", sums, max_err, 64)
+
+
+def check_sru_direction_edges(gen, max_err, depths):
+    """K4 against its plain version at the ``SRU_DIR_EDGE`` shapes, both
+    directions and dtypes, on slices of one (L, rows, 4, 2*H) projection
+    whose storage starts ``offset`` elements in. Adds each launch's ring
+    depth to ``depths``."""
+    import torch
+
+    _, _, _, kdir = kernel_modules()
+    for L, rows, Hd, offset in SRU_DIR_EDGE:
+        for dtype, reverse in itertools.product((torch.float32, torch.bfloat16), (False, True)):
+            u = edge_operand((L, rows, 4, 2 * Hd), dtype, offset, gen)
+            sl = slice(Hd, 2 * Hd) if reverse else slice(0, Hd)
+            ops = [u[:, :, c, sl] for c in range(4)]
+            gates = [0.5 * torch.randn(Hd, generator=gen, device="cuda") for _ in range(4)]
+            depth = kdir.launch_plan(rows, Hd, u.element_size(),
+                                     all(kdir._words_aligned(t) for t in ops))
+            depths.add(depth)
+            got = kdir.sru_direction(*ops, *gates, reverse=reverse)
+            torch.cuda.synchronize()
+            ok, err = tolerance_ok(got, kdir.sru_direction_ref(*ops, *gates, reverse=reverse),
+                                   dtype)
+            print("sru_direction edge " + json.dumps({
+                "L": L, "rows": rows, "H": Hd, "offset": offset, "reverse": reverse,
+                "dtype": dtype_name(dtype), "depth": depth, "max_abs_err": err}))
+            if not ok:
+                fail(f"sru_direction edge L={L} rows={rows} H={Hd} offset={offset} "
+                     f"reverse={reverse} {dtype}: max_abs_err {err} out of tolerance")
+            max_err[dtype] = max(max_err[dtype], err)
 
 
 def serving_setup():
@@ -830,22 +949,18 @@ def check_sru_train_edges(gen):
 
     from rtfs_net_tpu_torch.ops.kernels import sru_train as ktrain
 
-    def operand(shape, dtype, offset, scale=1.0):
-        flat = scale * torch.randn(math.prod(shape) + offset, generator=gen, device="cuda")
-        return flat.to(dtype)[offset:].view(shape)
-
     for L, rows, k, ndir, offset in SRU_EDGE:
         O = H * ndir
         for dtype in (torch.float32, torch.bfloat16):
-            u = operand((L, k * O, rows), dtype, offset)
-            skip = operand((L, O, rows), dtype, offset) if k == 3 else None
-            dh = operand((L, O, rows), dtype, offset)
+            u = edge_operand((L, k * O, rows), dtype, offset, gen)
+            skip = edge_operand((L, O, rows), dtype, offset, gen) if k == 3 else None
+            dh = edge_operand((L, O, rows), dtype, offset, gen)
             v, b = (0.5 * torch.randn(2 * O, generator=gen, device="cuda") for _ in range(2))
             kw = dict(H=H, k=k, ndir=ndir)
             before = (ktrain.forward_launches, ktrain.backward_launches)
             h, c = ktrain.sru_train_forward(u, skip, v, b, **kw)
             if offset:  # the backward's c a slice at the offset too
-                c = operand(c.shape, dtype, offset).copy_(c)
+                c = edge_operand(c.shape, dtype, offset, gen).copy_(c)
             got = ktrain.sru_train_backward(u, skip, c, v, b, dh, **kw)
             torch.cuda.synchronize()
             launched = (ktrain.forward_launches - before[0], ktrain.backward_launches - before[1])

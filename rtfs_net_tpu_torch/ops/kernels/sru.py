@@ -6,6 +6,9 @@ arguments and layout: u (L, k·O, rows) with chunk-major columns
 ``c*O + d*H + h``; skip (L, O, rows) when k == 3 (unused when k == 4,
 where u's 4th chunk is the highway); v, b the layer's (2·O,) gate vectors.
 Returns (L, O, rows) in u's dtype; the carry and the math are float32.
+
+``launch_plan`` picks each launch's ring depth, or the narrow kernel;
+``sru_direction.py`` plans K4 by the same rule, ``ring_plan``.
 """
 from __future__ import annotations
 
@@ -22,11 +25,54 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # launches of the CUDA kernel since the last reset (set it to 0 to reset)
 launches = 0
 
+THREADS = 128             # per block; a launch's grid is ceil(chains / THREADS) blocks
+SMS = 132                 # an H100's SMs, for planning where no card is asked
+SMEM_PER_SM = 228 * 1024  # shared memory an SM gives its blocks, 1 KB each reserved
+BLOCKS_AT_ONCE = 2048 // THREADS  # blocks an SM holds at once by its thread limit
+DEEP, SHALLOW = 32, 8     # ring depths the kernels take
+OPERANDS = 4              # copied per step: u0, u1, u2, skip
+
+
+def ring_plan(blocks: int, itemsize: int, narrow: bool, sms: int = SMS) -> int:
+    """D, the steps in each warp's shared-memory ring, for a launch of
+    ``blocks`` blocks, or 0 for the narrow kernel. ``narrow``: a ring cannot
+    take the operands. Where each SM gets at most one block the carry chain
+    sets the time, and the deepest ring waits least per step. Up to
+    ``BLOCKS_AT_ONCE`` blocks per SM the shallow ring, whose shared memory
+    lets every block stay resident. Beyond that the launch runs in waves,
+    and the narrow kernel's lighter blocks (fewer registers, no shared
+    memory) hide its latency better than the ring (measured on an H100:
+    ``scripts/torch_sru_plans.py``)."""
+    per_sm = -(-blocks // sms)
+    stage = THREADS * OPERANDS * itemsize  # a block's ring bytes per step
+    if narrow or per_sm > BLOCKS_AT_ONCE or per_sm * (SHALLOW * stage + 1024) > SMEM_PER_SM:
+        return 0
+    return DEEP if per_sm <= 1 else SHALLOW
+
+
+@functools.lru_cache(maxsize=None)
+def launch_plan(rows: int, O: int, itemsize: int, aligned: bool = True, sms: int = SMS) -> int:
+    """D of one K1 launch, grid (ceil(rows / THREADS), O), or 0 for the
+    narrow kernel. A bfloat16 ring copies 4-byte words of two rows, so odd
+    rows or an operand that does not start 4-byte aligned (``aligned``
+    False) take the narrow kernel."""
+    return ring_plan(-(-rows // THREADS) * O, itemsize,
+                     itemsize == 2 and (rows % 2 == 1 or not aligned), sms)
+
+
+def _aligned(*tensors) -> bool:
+    return all(t is None or t.data_ptr() % 4 == 0 for t in tensors)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
 
 @functools.lru_cache(maxsize=None)
 def _fn():
     fn = build.load(SOURCE).rtfs_sru_stack_layer
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -73,10 +119,12 @@ def sru_stack_layer(u, skip, v, b, *, H: int, k: int, ndir: int):
     out = torch.empty((L, O, rows), dtype=u.dtype, device=u.device)
     v = v.float().contiguous()
     b = b.float().contiguous()
+    skip = skip if k == 3 else None
+    depth = launch_plan(rows, O, u.element_size(), _aligned(u, skip), _sms(u.device.index or 0))
     with torch.cuda.device(u.device):
-        err = fn(u.data_ptr(), skip.data_ptr() if k == 3 else None,
+        err = fn(u.data_ptr(), None if skip is None else skip.data_ptr(),
                  v.data_ptr(), b.data_ptr(), out.data_ptr(),
-                 L, rows, H, k, ndir, _DTYPES[u.dtype],
+                 L, rows, H, k, ndir, depth, _DTYPES[u.dtype],
                  torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"sru_stack_layer kernel launch failed: CUDA error {err}")

@@ -19,6 +19,7 @@ import functools
 import torch
 
 from . import build
+from .sru import SMS, THREADS, _sms, ring_plan
 
 SOURCE = "sru_direction.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -28,10 +29,25 @@ launches = 0
 
 
 @functools.lru_cache(maxsize=None)
+def launch_plan(rows: int, H: int, itemsize: int, aligned: bool = True, sms: int = SMS) -> int:
+    """D of one K4 launch, grid ceil(rows * H / THREADS), or 0 for the
+    narrow kernel. A bfloat16 ring copies 4-byte words of two neighbouring
+    h, so odd H or an operand whose base or strides break that word
+    alignment (``aligned`` False) take the narrow kernel."""
+    return ring_plan(-(-rows * H // THREADS), itemsize,
+                     itemsize == 2 and (H % 2 == 1 or not aligned), sms)
+
+
+def _words_aligned(t) -> bool:
+    """A bfloat16 operand's 4-byte words stay aligned at every (t, row)."""
+    return t.data_ptr() % 4 == 0 and t.stride(0) % 2 == 0 and t.stride(1) % 2 == 0
+
+
+@functools.lru_cache(maxsize=None)
 def _fn():
     fn = build.load(SOURCE).rtfs_sru_direction
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_int64)]
-                   + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+                   + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -73,10 +89,12 @@ def sru_direction(u0, u1, u2, skip, v_f, v_r, b_f, b_r, reverse: bool = False):
     strides = (ctypes.c_int64 * 8)(*(s for t in operands for s in t.stride()[:2]))
     gates = [g.float().contiguous() for g in gates]
     out = torch.empty((L, rows, H), dtype=u0.dtype, device=u0.device)
+    depth = launch_plan(rows, H, u0.element_size(), all(_words_aligned(t) for t in operands),
+                        _sms(u0.device.index or 0))
     with torch.cuda.device(u0.device):
         err = fn(*(t.data_ptr() for t in operands), strides,
                  *(g.data_ptr() for g in gates), out.data_ptr(),
-                 L, rows, H, int(bool(reverse)), _DTYPES[u0.dtype],
+                 L, rows, H, int(bool(reverse)), depth, _DTYPES[u0.dtype],
                  torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"sru_direction kernel launch failed: CUDA error {err}")

@@ -18,7 +18,7 @@ import functools
 import torch
 
 from . import build
-from .sru import _DTYPES, _check
+from .sru import SMEM_PER_SM, SMS, THREADS, _aligned, _check, _DTYPES, _sms
 
 SOURCE = "sru_train.cu"
 
@@ -26,9 +26,7 @@ SOURCE = "sru_train.cu"
 forward_launches = 0
 backward_launches = 0
 
-THREADS, WARPS = 128, 4  # per block; the grid is (ceil(rows / THREADS), O)
-SMS = 132                 # an H100's SMs, for planning where no card is asked
-SMEM_PER_SM = 228 * 1024  # shared memory an SM gives its blocks, 1 KB each reserved
+WARPS = THREADS // 32  # per block; the grid is (ceil(rows / THREADS), O)
 # bytes of loads each SM should keep in flight: 3.35 TB/s over 132 SMs is
 # ~25 KB per us, and a loaded HBM answers in one to two us
 IN_FLIGHT_BYTES = 64 * 1024
@@ -54,15 +52,6 @@ def ring_depth(rows: int, O: int, itemsize: int, which: str, aligned: bool = Tru
     depths = DEPTHS[which]
     fits = [d for d in depths if per_sm * (d * stage + 1024) <= SMEM_PER_SM] or [depths[0]]
     return next((d for d in fits if per_sm * d * stage >= IN_FLIGHT_BYTES), fits[-1])
-
-
-def _aligned(*tensors) -> bool:
-    return all(t is None or t.data_ptr() % 4 == 0 for t in tensors)
-
-
-@functools.lru_cache(maxsize=None)
-def _sms(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: nothing under ``rtfs_net_tpu_torch/``,
-nothing in ``chip_smoke.py`` imports JAX, Flax or the JAX package; and a
+nothing in ``chip_smoke.py`` or the port's kernel scripts imports JAX, Flax
+or the JAX package; and a
 kernel wrapper given a CUDA tensor launches its kernel or raises, never
 runs its plain version instead."""
 import ast
@@ -10,7 +11,9 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "rtfs_net_tpu")
-FILES = sorted((ROOT / "rtfs_net_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT = sorted((ROOT / "rtfs_net_tpu_torch").rglob("*.py"))
+FILES = PORT + [ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_kernel_ab.py",
+                ROOT / "scripts" / "torch_sru_plans.py"]
 
 
 def _imports(path):
@@ -32,7 +35,7 @@ def test_port_has_modules():
 
 
 def test_new_modules_are_covered():
-    names = {str(p.relative_to(ROOT / "rtfs_net_tpu_torch")) for p in FILES[:-1]}
+    names = {str(p.relative_to(ROOT / "rtfs_net_tpu_torch")) for p in PORT}
     assert {"ops/kernels/dw_conv.py", "ops/kernels/sru_direction.py",
             "models/videomodels/__init__.py", "models/videomodels/resnet.py",
             "models/videomodels/frcnn_videomodel.py"} <= names
@@ -54,6 +57,11 @@ def _dw_conv_call(module):
     return module.dw_conv2d_same(_on_card(2, 3, 8, 8), _on_card(3, 1, 3, 3), ((1, 1), (1, 1)))
 
 
+def _sru_stack_layer_call(module):
+    return module.sru_stack_layer(_on_card(5, 3 * 8, 4), _on_card(5, 8, 4), _on_card(16),
+                                  _on_card(16), H=4, k=3, ndir=2)
+
+
 def _sru_direction_call(module):
     return module.sru_direction(*(_on_card(5, 4, 8) for _ in range(4)),
                                 *(_on_card(8) for _ in range(4)))
@@ -62,6 +70,7 @@ def _sru_direction_call(module):
 @pytest.mark.parametrize("name,plain,call", [
     ("dw_conv", "dw_conv2d_same_ref", _dw_conv_call),
     ("sru_direction", "sru_direction_ref", _sru_direction_call),
+    ("sru", "sru_stack_layer_ref", _sru_stack_layer_call),
 ])
 def test_wrapper_raises_without_a_build(monkeypatch, tmp_path, name, plain, call):
     """No ``nvcc``: the wrapper's build fails and the call raises; the

@@ -35,10 +35,18 @@ def _layer_inputs(rng, L, k, H, ndir, B):
     return u, skip, v, b
 
 
-@pytest.mark.parametrize("k", [3, 4])
-@pytest.mark.parametrize("ndir", [1, 2])
-def test_stack_layer_ref_matches_pallas_kernel(rng, k, ndir):
-    H, L, B = 8, 9, 16
+# edge shapes (chip_smoke.py's SRU_EDGE): (L, rows, k, ndir): L = 1 and 2,
+# odd rows 63 and 125 (the bfloat16 ring takes no odd rows)
+EDGE_CASES = [(1, 16, 3, 2), (2, 16, 4, 1), (2, 63, 4, 2), (3, 125, 3, 1)]
+
+
+@pytest.mark.parametrize(
+    "k,ndir,L,B",
+    [pytest.param(k, ndir, 9, 16, id=f"{ndir}-{k}") for k in (3, 4) for ndir in (1, 2)]
+    + [pytest.param(k, ndir, L, B, id=f"edge-L{L}-rows{B}-k{k}-ndir{ndir}")
+       for L, B, k, ndir in EDGE_CASES])
+def test_stack_layer_ref_matches_pallas_kernel(rng, k, ndir, L, B):
+    H = 8
     u, skip, v, b = _layer_inputs(rng, L, k, H, ndir, B)
     want = np.asarray(jax_sru_stack_layer(
         jnp.asarray(u), jnp.asarray(skip), jnp.asarray(v), jnp.asarray(b),
@@ -61,6 +69,41 @@ def test_stack_layer_bf16_keeps_float32_carry(rng):
     assert got.dtype == torch.bfloat16
     want = ksru.sru_stack_layer_ref(*(a.float() for a in args), H=H, k=k, ndir=ndir)
     torch.testing.assert_close(got, want.bfloat16(), atol=0, rtol=0)
+
+
+def test_launch_plan_fits_main_path_launches():
+    """At the main path's shapes (rows 125·B and 64·B for B = 1, 4, 16, 128,
+    64 channels) a ring launch keeps every block of the launch resident at
+    once: no more blocks per SM than its thread limit, and their rings in
+    its shared memory. The deep ring goes where an SM gets one block, the
+    shallow one up to a full card, the narrow kernel to the B=128 launches
+    (several waves) and to odd bfloat16 rows."""
+    O = 64
+    for B in (1, 4, 16, 128):
+        for rows in (125 * B, 64 * B):
+            for itemsize in (4, 2):
+                depth = ksru.launch_plan(rows, O, itemsize)
+                per_sm = -(-(-(-rows // ksru.THREADS) * O) // ksru.SMS)
+                if B == 128 or (itemsize == 2 and rows % 2):
+                    assert depth == 0
+                    continue
+                assert depth == (ksru.DEEP if per_sm == 1 else ksru.SHALLOW)
+                stage = ksru.THREADS * ksru.OPERANDS * itemsize
+                assert per_sm <= ksru.BLOCKS_AT_ONCE
+                assert per_sm * (depth * stage + 1024) <= ksru.SMEM_PER_SM
+
+
+def test_launch_plan_takes_the_narrow_kernel_when_misaligned():
+    """A bfloat16 ring copies 4-byte words of two rows: odd rows or an
+    operand that starts off a 4-byte boundary take the narrow kernel;
+    float32 rows are always aligned."""
+    assert ksru.launch_plan(500, 64, 2, aligned=False) == 0
+    assert ksru.launch_plan(63, 64, 2) == 0
+    assert ksru.launch_plan(63, 64, 4) > 0
+    assert ksru.launch_plan(500, 64, 4, aligned=False) > 0
+    assert ksru.launch_plan(500, 64, 2) > 0
+    t = torch.zeros(9, dtype=torch.bfloat16)
+    assert ksru._aligned(t, None) and not ksru._aligned(t, t[1:])
 
 
 def test_stack_layer_rejects_bad_inputs(rng):

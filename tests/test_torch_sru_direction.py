@@ -18,6 +18,7 @@ import torch
 from rtfs_net_tpu.ops.pallas.sru_kernel import sru_direction_pallas
 from rtfs_net_tpu.ops.rnn import SRU as JaxSRU
 from rtfs_net_tpu_torch.ops import rnn
+from rtfs_net_tpu_torch.ops.kernels import sru as ksru
 from rtfs_net_tpu_torch.ops.kernels import sru_direction as kdir
 from rtfs_net_tpu_torch.utils import convert
 
@@ -33,21 +34,67 @@ def _direction_inputs(rng, L, B, H):
     return u, skip, gates
 
 
+# edge shapes (chip_smoke.py's SRU_DIR_EDGE): (L, B, H, offset): L = 1 and
+# 2, odd rows 63 and 125, odd H, and u's storage starting at an odd element
+# offset (the bfloat16 ring takes neither odd H nor misaligned words)
+EDGE_CASES = [(1, 16, 8, 0), (2, 63, 8, 0), (5, 125, 8, 0), (13, 16, 7, 0), (13, 16, 8, 1)]
+
+
 @pytest.mark.parametrize("reverse", [False, True])
-@pytest.mark.parametrize("L,B,H", [(13, 16, 8), (57, 40, 32)])  # tests/test_pallas_sru.py:16
-def test_plain_version_matches_pallas_kernel(rng, reverse, L, B, H):
+@pytest.mark.parametrize(
+    "L,B,H,offset",
+    [pytest.param(L, B, H, 0, id=f"{L}-{B}-{H}")
+     for L, B, H in [(13, 16, 8), (57, 40, 32)]]  # tests/test_pallas_sru.py:16
+    + [pytest.param(L, B, H, offset, id=f"edge-L{L}-rows{B}-H{H}-offset{offset}")
+       for L, B, H, offset in EDGE_CASES])
+def test_plain_version_matches_pallas_kernel(rng, reverse, L, B, H, offset):
     u, skip, gates = _direction_inputs(rng, L, B, H)
     ju = jnp.asarray(u)
     want = np.asarray(sru_direction_pallas(
         ju[:, :, 0], ju[:, :, 1], ju[:, :, 2], jnp.asarray(skip),
         *(jnp.asarray(g) for g in gates), reverse=reverse, interpret=True))
-    tu = torch.from_numpy(u)
+    flat = torch.from_numpy(np.concatenate([np.zeros(offset, np.float32), u.ravel()]))
+    tu = flat[offset:].view(u.shape)
     before = kdir.launches
     got = kdir.sru_direction(tu[:, :, 0], tu[:, :, 1], tu[:, :, 2], torch.from_numpy(skip),
                              *(torch.from_numpy(g) for g in gates), reverse=reverse)
     assert kdir.launches == before  # CPU tensors never count as a launch
     assert got.shape == (L, B, H) and got.is_contiguous()
     np.testing.assert_allclose(got.numpy(), want, atol=1e-6)
+
+
+def test_launch_plan_fits_main_path_launches():
+    """At the main path's shapes (rows 125·B and 64·B for B = 1, 4, 16, 128,
+    H = 32) a ring launch keeps every block resident at once, in both
+    dtypes: the deep ring where an SM gets one block, the shallow one up to
+    a full card; launches of several waves take the narrow kernel."""
+    H = 32
+    for B in (1, 4, 16, 128):
+        for rows in (125 * B, 64 * B):
+            for itemsize in (4, 2):
+                depth = kdir.launch_plan(rows, H, itemsize)
+                per_sm = -(-(-(-rows * H // ksru.THREADS)) // ksru.SMS)
+                if per_sm > ksru.BLOCKS_AT_ONCE or depth == 0:
+                    assert depth == 0 and B == 128
+                    continue
+                assert depth == (ksru.DEEP if per_sm == 1 else ksru.SHALLOW)
+                stage = ksru.THREADS * ksru.OPERANDS * itemsize
+                assert per_sm * (depth * stage + 1024) <= ksru.SMEM_PER_SM
+
+
+def test_launch_plan_takes_the_narrow_kernel_when_misaligned():
+    """A bfloat16 ring copies 4-byte words of two neighbouring h: odd H, or
+    an operand whose base or strides break the word alignment, take the
+    narrow kernel; float32 takes the ring whatever its layout."""
+    assert kdir.launch_plan(500, 33, 2) == 0
+    assert kdir.launch_plan(500, 32, 2, aligned=False) == 0
+    assert kdir.launch_plan(500, 32, 2) > 0
+    assert kdir.launch_plan(500, 33, 4, aligned=False) > 0
+    u = torch.zeros((3, 5, 4, 66), dtype=torch.bfloat16)
+    assert kdir._words_aligned(u[:, :, 1, 32:64])
+    assert not kdir._words_aligned(u[:, :, 1, 33:65])       # odd base
+    odd_strides = torch.zeros((3, 5, 33), dtype=torch.bfloat16)[:, :, :32]
+    assert not kdir._words_aligned(odd_strides)
 
 
 def test_bf16_keeps_float32_carry(rng):
