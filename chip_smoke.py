@@ -37,7 +37,11 @@ Phases (any failure exits non-zero before the final line):
    16 through ``separate()``; K1 must launch exactly 32 times and K3
    exactly 40 times per forward, K2 and K4 never; B=1 in float32 is held
    against the same model on the CPU; ms per forward and per utterance in
-   float32 and bfloat16.
+   float32 and bfloat16. Then the JAX package's ``bench.py`` serving point:
+   (128, 512, 50) lip embeddings in bfloat16, timed as ``bench.py`` times
+   it (one warm-up call, then the minimum of 6 calls, each on distinct
+   inputs, beside their median), with the launch counts of every call and
+   peak memory.
 7. serving from frames: the same model behind the FRCNN video model
    (ResNet-18 trunk, random weights from seed 0) answers requests of 2 s
    mixtures plus raw (B, 1, 50, 88, 88) mouth-ROI frames at B = 1, 4, 16 in
@@ -67,7 +71,25 @@ Phases (any failure exits non-zero before the final line):
    the same step on the CPU: the loss and every gradient.
 13. train profile: ``torch.profiler`` over one B=16 bfloat16 step; fails
    if K2's or K3's category shows no time.
-14. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}`` last.
+14. fit: the training entry point ``rtfs_net_tpu_torch.train.main`` on a
+   synthetic LRS2-style manifest on disk (16 train and 8 validation
+   target-speaker items: 2 s wavs and 50x96x96 uint8 mouth tracks), at full
+   width with the FRCNN video model from frames (frozen, weights from seed
+   0: the config's pretrained backbone is not in the repository), batch 4,
+   float32, process loader workers, 2 epochs. Every train step launches K2
+   forward 64 times, K2 backward 32, K3 120 and K1 never; every validation
+   batch K1 32 and K3 40. Losses finite; the ledger, ``last.json``, the
+   TensorBoard events and ``best_model.pth`` on disk. Then a third epoch
+   that SIGTERM interrupts after its second step ('preempt' saved), and a
+   fresh run that resumes from it (parameters and optimizer state equal to
+   the checkpoint's, bit for bit) and finishes the epoch. The exported
+   ``best_model.pth``, reloaded with ``serialization.load_model``, holds
+   the checkpoint's tensors and separates a validation batch exactly as
+   the checkpoint's model does, both run with cuDNN's deterministic
+   algorithms (without them two runs of one model differ by ~2e-7). A ``fit``
+   line: ms per train step and validation batch, epoch wall time, the share
+   of it spent waiting on the loaders, launches per step, peak memory.
+15. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}`` last.
 
 Every comparison on the card runs with TF32 off (cuDNN convolutions and
 matmuls in full float32), and so do the float32 timings.
@@ -109,6 +131,12 @@ REPEATS = 4                # TDANet repeats per forward (1 fused + 3 audio-only)
 SERVE_BATCHES = (1, 4, 16)
 SERVE_REPS = 7  # timed forwards per (dtype, B); small batches are host-bound and noisy
 BIG_BATCH = 128  # the batch the JAX package's serving benchmark runs, in bfloat16
+BENCH_CALLS = 6  # timed calls at the benchmark's serving point (bench.py: min of 6)
+# the fit phase: target-speaker items per split (two per mixture), epochs,
+# the reference's per-GPU batch, loader worker processes per split, and
+# the epoch and step of the third epoch at which SIGTERM arrives
+FIT_ITEMS = {"tr": 16, "cv": 8}
+FIT_EPOCHS, FIT_BATCH, FIT_WORKERS, FIT_PREEMPT = 2, 4, 4, (2, 1)
 VIDEO_FRAMES, MOUTH_SIZE = 50, 88  # 2 s of 25 fps mouth-ROI frames
 CHANNELS = 64  # TDANet hid_chan: the depthwise convs' channels
 DW_PLANES = {(251, 129): 3, (125, 64): 7}  # K3 launches per TDANet block, by (T, F)
@@ -718,6 +746,41 @@ def check_serving(label, model, requests, video=None):
     return launches, outs
 
 
+def check_bench_point(model):
+    """``bench.py``'s serving point: RTFS-Net-4 from (128, 512, 50) lip
+    embeddings in bfloat16, one warm-up call, then ``BENCH_CALLS`` timed
+    calls, each on its own inputs (``utils/profiling.py:timed``); every call
+    launches K1 32 and K3 40 times."""
+    import torch
+
+    from rtfs_net_tpu_torch.utils.separator import separate
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    requests = [(torch.randn((BIG_BATCH, SAMPLES), generator=gen, device="cuda"),
+                 0.1 * torch.randn((BIG_BATCH, LIP_CHANNELS, LIP_FRAMES), generator=gen,
+                                   device="cuda"))
+                for _ in range(1 + BENCH_CALLS)]
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i, (mix, emb) in enumerate(requests):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = launches_of(lambda: separate(model, mix, emb, dtype=torch.bfloat16),
+                          {"K1": 32, "K3": DW_LAUNCHES}, f"serving B={BIG_BATCH} call {i}")
+        if i:  # call 0 is the warm-up
+            times.append((time.perf_counter() - t0) * 1e3)
+        if tuple(out.shape) != (BIG_BATCH, 1, SAMPLES) or not bool(torch.isfinite(out).all()):
+            fail(f"serving B={BIG_BATCH}: output {tuple(out.shape)}, "
+                 f"finite={bool(torch.isfinite(out).all())}")
+    times.sort()
+    print("serving " + json.dumps({
+        "dtype": "bfloat16", "B": BIG_BATCH, "timing": "bench.py: min of 6 distinct inputs",
+        "ms_per_forward_min": times[0], "ms_per_forward_median": times[len(times) // 2],
+        "ms_per_utt_min": times[0] / BIG_BATCH, "utt_per_s": BIG_BATCH / times[0] * 1e3,
+        "launches_per_forward": {"K1": 32, "K3": DW_LAUNCHES},
+        "peak_mem_GiB": torch.cuda.max_memory_allocated() / 2 ** 30}))
+
+
 def check_direction_pass(model, video, request, scan_out):
     """The per-direction route: the B=16 float32 request from frames with
     ``DEFAULT_SRU_BACKEND = "pallas"`` set for the pass and restored after.
@@ -1117,6 +1180,287 @@ def profile_training(base):
                  lambda: system.train_step(batch, generator=gen), 1, TRAIN_CATEGORIES)
 
 
+def write_fit_manifest(root):
+    """An LRS2-style manifest per split under ``root``: mixtures of 2 s
+    (mix, s1, s2 wavs) with a 50x96x96 uint8 mouth track per speaker, two
+    target-speaker items per mixture. Returns ``{split: directory}``."""
+    import numpy as np
+
+    from rtfs_net_tpu_torch.datas import wavio
+
+    rng = np.random.default_rng(9)
+    dirs = {}
+    for split, items in FIT_ITEMS.items():
+        d = dirs[split] = os.path.join(root, split)
+        os.makedirs(d)
+        rows = {"mix": [], "s1": [], "s2": []}
+        for i in range(items // 2):
+            wavs = {}
+            for name in rows:
+                wavs[name] = os.path.join(d, f"{name}_{i}.wav")
+                wavio.write(wavs[name], 0.1 * rng.standard_normal(SAMPLES).astype(np.float32),
+                            16000)
+            rows["mix"].append([wavs["mix"], SAMPLES])
+            for spk in ("s1", "s2"):
+                mouth = os.path.join(d, f"{spk}_{i}.npz")
+                np.savez_compressed(mouth, data=rng.integers(
+                    0, 256, (VIDEO_FRAMES, 96, 96), dtype=np.uint8))
+                rows[spk].append([wavs[spk], mouth, SAMPLES])
+        for name, data in rows.items():
+            with open(os.path.join(d, f"{name}.json"), "w") as f:
+                json.dump(data, f)
+    return dirs
+
+
+class FitWatch:
+    """Wraps ``System.train_step`` and ``System.val_step`` for one run of
+    the entry point: each call's kernel launches are recorded, and the call
+    is bracketed by two CUDA events, so that the loop runs with no host sync
+    added; ``ms`` reads each call's device span (from the stream reaching
+    its first work to its last, idle gaps included) after the run.
+    ``before_first_step``, when set, is called with the system before its
+    first train step."""
+
+    def __init__(self, before_first_step=None):
+        self.steps, self.vals = [], []
+        self.before_first_step = before_first_step
+
+    def _record(self, into, fn):
+        import torch
+
+        before = launch_counts()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        into.append(({k: n - before[k] for k, n in launch_counts().items()}, (start, end)))
+        return out
+
+    @staticmethod
+    def ms(calls):
+        import torch
+
+        torch.cuda.synchronize()
+        return [start.elapsed_time(end) for _, (start, end) in calls]
+
+    def __enter__(self):
+        from rtfs_net_tpu_torch.system.core import System
+
+        self.original = System.train_step, System.val_step
+        train_step, val_step = self.original
+        watch = self
+
+        def watched_train_step(system, batch, generator=None):
+            if watch.before_first_step is not None and not watch.steps:
+                watch.before_first_step(system)
+            return watch._record(watch.steps, lambda: train_step(system, batch, generator))
+
+        def watched_val_step(system, batch):
+            return watch._record(watch.vals, lambda: val_step(system, batch))
+
+        System.train_step, System.val_step = watched_train_step, watched_val_step
+        return self
+
+    def __exit__(self, *exc):
+        from rtfs_net_tpu_torch.system.core import System
+
+        System.train_step, System.val_step = self.original
+
+    def check_launches(self, what):
+        want_step = {"K2_forward": 64, "K2_backward": 32, "K3": 3 * DW_LAUNCHES}
+        want_val = {"K1": 32, "K3": DW_LAUNCHES}
+        for calls, want, kind in ((self.steps, want_step, "train step"),
+                                  (self.vals, want_val, "validation batch")):
+            if not calls:
+                fail(f"{what}: no {kind} ran")
+            for i, (got, _) in enumerate(calls):
+                if got != {k: want.get(k, 0) for k in got}:
+                    fail(f"{what}: {kind} {i} launched {got}, want {want} and no others")
+
+
+class PreemptingLoader:
+    """A training loader that sends this process SIGTERM while handing out
+    batch ``at[1]`` of epoch ``at[0]``: the trainer's handler flags the
+    loop, that step still runs, and the loop saves 'preempt' after it."""
+
+    def __init__(self, loader, at):
+        self.loader, self.at, self.epoch = loader, at, -1
+
+    def set_epoch(self, epoch):
+        self.epoch = epoch
+        self.loader.set_epoch(epoch)
+
+    def __iter__(self):
+        import signal
+
+        for i, batch in enumerate(self.loader):
+            if (self.epoch, i) == self.at:
+                os.kill(os.getpid(), signal.SIGTERM)
+            yield batch
+
+    def close(self):
+        self.loader.close()
+
+
+def tensors_equal(got, want, what):
+    """Fail unless two (nested) state dicts hold bit-equal tensors."""
+    import torch
+
+    if isinstance(want, dict):
+        if set(got) != set(want):
+            fail(f"{what}: keys differ")
+        for k in want:
+            tensors_equal(got[k], want[k], f"{what}.{k}")
+    elif isinstance(want, (list, tuple)):
+        for i, (g, w) in enumerate(zip(got, want)):
+            tensors_equal(g, w, f"{what}[{i}]")
+    elif isinstance(want, torch.Tensor):
+        if not torch.equal(got, want.to(got.device)):
+            fail(f"{what}: differs")
+    elif got != want:
+        fail(f"{what}: {got} != {want}")
+
+
+def check_fit():
+    """The training entry point, end to end on the card (phase 14)."""
+    import glob
+    import tempfile
+
+    import torch
+
+    from rtfs_net_tpu_torch import train
+    from rtfs_net_tpu_torch.models import build_model, serialization
+    from rtfs_net_tpu_torch.utils.separator import separate
+
+    with tempfile.TemporaryDirectory() as root:
+        dirs = write_fit_manifest(root)
+        argv = ["--conf-dir", CONFIG, "--train_dir", dirs["tr"], "--valid_dir", dirs["cv"],
+                "--path", os.path.join(root, "log"), "--batch_size", str(FIT_BATCH),
+                "--num_workers", str(FIT_WORKERS), "--device", "cuda",
+                # the seed's frozen backbone: no published weights are read
+                "--pretrain", ""]
+        conf = train.parse_conf(argv + ["--epochs", str(FIT_EPOCHS)])
+        exp_dir = os.path.join(conf["log"]["path"], conf["log"]["exp_name"])
+
+        # two epochs from scratch
+        torch.cuda.reset_peak_memory_stats()
+        with FitWatch() as watch:
+            trainer = train.main(conf)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        watch.check_launches("fit")
+        steps_per_epoch = FIT_ITEMS["tr"] // FIT_BATCH
+        batches_per_epoch = steps_per_epoch + FIT_ITEMS["cv"] // FIT_BATCH
+        if [h["epoch"] for h in trainer.history] != list(range(FIT_EPOCHS)) or \
+                trainer.system.step != FIT_EPOCHS * steps_per_epoch:
+            fail(f"fit: history {trainer.history}, {trainer.system.step} steps")
+        for h in trainer.history:
+            if not (math.isfinite(h["train_loss"]) and math.isfinite(h["val_loss"])):
+                fail(f"fit: epoch {h['epoch']} losses {h['train_loss']}, {h['val_loss']}")
+        for name in ("best_k_models.json", "checkpoints/last.json", "best_model.pth",
+                     "conf.yaml"):
+            if not os.path.isfile(os.path.join(exp_dir, name)):
+                fail(f"fit: {name} missing")
+        if not glob.glob(os.path.join(exp_dir, "tb", "*", "*", "events.out.tfevents.*")):
+            fail("fit: no TensorBoard events")
+        step_ms, val_ms = watch.ms(watch.steps), sorted(watch.ms(watch.vals))
+        first_step_ms = step_ms[0]  # cuDNN's first choices of algorithm
+        step_ms.sort()
+        launches_per_step, launches_per_val = watch.steps[0][0], watch.vals[0][0]
+        print("main path launches (fit): " + json.dumps(
+            {k: sum(got[k] for got, _ in watch.steps + watch.vals) for k in launch_counts()}))
+        history = trainer.history
+        del trainer, watch
+        print("fit " + json.dumps({
+            "dtype": "float32", "B": FIT_BATCH, "items": FIT_ITEMS, "epochs": FIT_EPOCHS,
+            "workers": FIT_WORKERS, "video_model": "FRCNNVideoModel from frames",
+            "ms_per_train_step_median": step_ms[len(step_ms) // 2],
+            "ms_per_train_step_min": step_ms[0],
+            "ms_first_train_step": first_step_ms,
+            "ms_per_val_batch_median": val_ms[len(val_ms) // 2],
+            "epoch_wall_s": [h["wall_s"] for h in history],
+            # epoch 0's wait holds the spawn of both loaders' worker pools
+            "loader_wait_share": [h["loader_wait_s"] / h["wall_s"] for h in history],
+            "loader_wait_ms_per_batch": [h["loader_wait_s"] * 1e3 / batches_per_epoch
+                                         for h in history],
+            "train_loss": [h["train_loss"] for h in history],
+            "val_loss": [h["val_loss"] for h in history],
+            "launches_per_step": launches_per_step, "launches_per_val_batch": launches_per_val,
+            "peak_mem_GiB": peak}))
+
+        # a third epoch, interrupted by SIGTERM after FIT_PREEMPT[1] + 1 steps
+        conf = train.parse_conf(argv + ["--epochs", str(FIT_EPOCHS + 1)])
+        build_dataloaders = train.build_dataloaders
+
+        def preempting(c):
+            train_loader, val_loader = build_dataloaders(c)
+            return PreemptingLoader(train_loader, FIT_PREEMPT), val_loader
+
+        train.build_dataloaders = preempting
+        try:
+            preempted = train.main(conf)
+        finally:
+            train.build_dataloaders = build_dataloaders
+        with open(os.path.join(exp_dir, "checkpoints", "last.json")) as f:
+            last = json.load(f)
+        want_steps = FIT_EPOCHS * steps_per_epoch + FIT_PREEMPT[1] + 1
+        if last["name"] != "preempt" or last["epoch"] != FIT_EPOCHS - 1 or \
+                preempted.system.step != want_steps:
+            fail(f"preempt: last.json {last}, {preempted.system.step} steps, "
+                 f"want {want_steps}")
+        saved = torch.load(os.path.join(exp_dir, "checkpoints", "preempt.pt"),
+                           map_location="cpu", weights_only=True)
+        tensors_equal(preempted.system.state_dict(), saved, "preempt checkpoint")
+        del preempted
+
+        # a fresh run resumes from 'preempt' and finishes the third epoch
+        def resumed_as_saved(system):
+            tensors_equal(system.state_dict(), saved, "resumed state")
+            print(f"resume: {system.step} steps; parameters and optimizer state equal to "
+                  "the preempt checkpoint's, bit for bit")
+
+        with FitWatch(before_first_step=resumed_as_saved) as watch:
+            resumed = train.main(conf)
+        watch.check_launches("resumed fit")
+        # the interrupted epoch restarts from the mid-epoch state
+        if resumed.start_epoch != FIT_EPOCHS or [h["epoch"] for h in resumed.history] != [
+                FIT_EPOCHS] or resumed.system.step != want_steps + steps_per_epoch:
+            fail(f"resume: start epoch {resumed.start_epoch}, history {resumed.history}, "
+                 f"{resumed.system.step} steps")
+
+        # the exported best model against the checkpoint it came from
+        best = resumed.ckpt.best_name()
+        video = resumed.system.video_model
+        ckpt_model = build_model(conf["audionet"], device="cuda")
+        ckpt_model.load_state_dict(resumed.ckpt.restore(best, map_location="cpu")["model"])
+        exported, package = serialization.load_model(os.path.join(exp_dir, "best_model.pth"),
+                                                     device="cuda")
+        _, val_loader = build_dataloaders(conf)
+        try:
+            mix, _, frames, _ = next(iter(val_loader))
+        finally:
+            val_loader.close()
+        device = next(ckpt_model.parameters()).device
+        mix, frames = torch.from_numpy(mix).to(device), torch.from_numpy(frames).to(device)
+        tensors_equal(exported.state_dict(), ckpt_model.state_dict(), "best_model.pth")
+        # under cuDNN's deterministic algorithms equal weights give equal outputs
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            want, got = (separate(m, mix, frames, video_model=video)
+                         for m in (ckpt_model, exported))
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        err = float((got - want).abs().max())
+        print(f"export: best_model.pth ({package['model_name']}, from {best}) vs its "
+              f"checkpoint on a validation batch {tuple(frames.shape)}: state dicts equal; "
+              f"separate() max_abs_err {err} (tol 0), max|ref| {float(want.abs().max())}, "
+              "float32")
+        if err != 0 or not bool(torch.isfinite(got).all()):
+            fail("export: best_model.pth separates differently from its checkpoint")
+        del resumed, ckpt_model, exported
+
+
+
 def main():
     import torch
 
@@ -1146,6 +1490,7 @@ def main():
     direction = check_sru_direction_kernel()
     model, video, requests, frame_requests = serving_setup()
     launches, _ = check_serving("serving", model, requests)
+    check_bench_point(model)
     frame_launches, frame_outs = check_serving("serving from frames", model, frame_requests,
                                                video)
     direction_launches = check_direction_pass(model, video, frame_requests[16],
@@ -1158,6 +1503,9 @@ def main():
     base, train_launches = check_training()
     check_train_parity()
     profile_training(base)
+    del base
+    torch.cuda.empty_cache()
+    check_fit()
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     # no single PyTorch call computes an SRU recurrence or its backward;

@@ -11,7 +11,11 @@ by ``nvcc`` at first use: the SRU layer recurrence
 and backward, under autograd), the stride-1 depthwise stencil
 (``csrc/dw_conv.cu``) and the per-direction SRU recurrence
 (``csrc/sru_direction.cu``); everything else is plain PyTorch. Entry
-points run on ``cuda`` unless the caller passes ``device="cpu"``.
+points run on ``cuda`` unless the caller passes ``device="cpu"``;
+``python -m rtfs_net_tpu_torch.train`` trains from a YAML config.
+
+This ``__init__`` imports nothing: the data loader's spawned workers
+import the package without loading torch.
 """
 
 __version__ = "0.1.0"

@@ -15,12 +15,15 @@ Without ``video_model`` the batch's third entry is the precomputed lip
 embedding; with one it is the raw mouth-ROI frames, and the embedding is
 computed from them without autograd (its BatchNorm statistics frozen)
 unless ``train_video_model``, which also joins the video model's
-parameters to the optimizer's, the clip and the update. ``online_mix`` is
-not ported yet and raises ``NotImplementedError``.
+parameters to the optimizer's, the clip and the update. ``online_mix``
+replaces an audio-only batch's mixture by an energy-matched remix of its
+sources (``online_mixing_collate``). ``step`` counts the optimizer steps;
+``state_dict``/``load_state_dict`` carry it with the model's, the
+optimizer's and (when it trains) the video model's state.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 
@@ -36,8 +39,6 @@ class System:
                  compute_dtype: Optional[torch.dtype] = None, accum_steps: int = 1,
                  video_model=None, train_video_model: bool = False,
                  online_mix: bool = False):
-        if online_mix:
-            raise NotImplementedError("System(online_mix=True) is not ported yet")
         self.model = model
         self.optimizer = optimizer
         self.video_model = video_model
@@ -52,6 +53,10 @@ class System:
         # the modules follow the input's dtype
         self.compute_dtype = compute_dtype
         self.accum_steps = int(accum_steps)
+        # energy-matched within-batch remix on the audio-only train path
+        # (reference core.py:96-98, when there is no video model)
+        self.online_mix = bool(online_mix)
+        self.step = 0
 
     def _parameters(self):
         """Every parameter the optimizer updates."""
@@ -81,10 +86,15 @@ class System:
 
         With ``accum_steps`` = A the batch runs as A sequential
         microbatches of B/A and the loss and gradients are their means
-        (BatchNorm statistics move once per microbatch). Dropout masks are
-        drawn from ``generator``, which must lie on the model's device."""
+        (BatchNorm statistics move once per microbatch). Dropout masks, and
+        ``online_mix``'s permutations, are drawn from ``generator``, which
+        must lie on the model's device."""
         mix, targets, mouths = batch
         targets = self._targets(targets)
+        if self.online_mix and mouths is None:
+            # the mixture is REPLACED by a fresh sum of energy-matched,
+            # batch-permuted sources
+            mix, targets = online_mixing_collate(targets, generator)
         A = self.accum_steps
         B = mix.shape[0]
         if B % A:
@@ -116,6 +126,7 @@ class System:
             gnorm = torch.linalg.vector_norm(
                 torch.stack([torch.linalg.vector_norm(p.grad) for p in params]))
         self.optimizer.step()
+        self.step += 1
         return {"loss": loss, "grad_norm": gnorm.detach()}
 
     @torch.no_grad()
@@ -124,3 +135,42 @@ class System:
         self.model.eval()
         loss = self.loss_func["val"](self._forward(mix, mouths), self._targets(targets))
         return {"val_loss": loss}
+
+    def state_dict(self) -> Dict:
+        """The training state: tensors and plain containers only."""
+        state = {"step": self.step, "model": self.model.state_dict(),
+                 "optimizer": self.optimizer.state_dict()}
+        if self.train_video_model:
+            state["video_model"] = self.video_model.state_dict()
+        return state
+
+    def load_state_dict(self, state: Dict):
+        self.step = int(state["step"])
+        self.model.load_state_dict(state["model"])
+        self.optimizer.load_state_dict(state["optimizer"])
+        if self.train_video_model:
+            self.video_model.load_state_dict(state["video_model"])
+
+
+def remix_sources(targets: torch.Tensor, perms: Sequence[torch.Tensor]):
+    """(B, n_src, T) sources -> (mixture, remixed sources): source i of
+    remixed utterance b is source i of utterance ``perms[i][b]``, rescaled
+    to the energy source i of utterance b had (reference core.py:185-201)."""
+    energies = targets.pow(2).sum(-1, keepdim=True)
+    new_src = []
+    for i, perm in enumerate(perms):
+        s = targets[perm, i]
+        s = s * torch.sqrt(energies[:, i] / (s.pow(2).sum(-1, keepdim=True) + 1e-8))
+        new_src.append(s)
+    targets = torch.stack(new_src, 1)
+    return targets.sum(1), targets
+
+
+def online_mixing_collate(targets: torch.Tensor, generator: Optional[torch.Generator] = None):
+    """Energy-matched within-batch source remix augmentation: one batch
+    permutation per source, drawn from ``generator``. targets: (B, n_src,
+    T) -> (mix, targets)."""
+    B, n_src, _ = targets.shape
+    perms = [torch.randperm(B, generator=generator, device=targets.device)
+             for _ in range(n_src)]
+    return remix_sources(targets, perms)

@@ -38,7 +38,25 @@ def test_new_modules_are_covered():
     names = {str(p.relative_to(ROOT / "rtfs_net_tpu_torch")) for p in PORT}
     assert {"ops/kernels/dw_conv.py", "ops/kernels/sru_direction.py",
             "models/videomodels/__init__.py", "models/videomodels/resnet.py",
-            "models/videomodels/frcnn_videomodel.py"} <= names
+            "models/videomodels/frcnn_videomodel.py", "datas/__init__.py",
+            "datas/wavio.py", "datas/transform.py", "datas/avspeech_dataset.py",
+            "datas/loader.py", "utils/parser.py", "system/schedulers.py",
+            "system/tb_writer.py", "system/checkpoint.py", "system/trainer.py",
+            "models/serialization.py", "train.py"} <= names
+
+
+def test_loader_workers_import_no_torch():
+    """The data loader's spawned workers import the dataset's package and
+    the training entry point (the main module); neither may load torch,
+    which would cost each worker seconds and could open a CUDA context."""
+    import subprocess
+    import sys
+
+    code = ("import sys, rtfs_net_tpu_torch.train, rtfs_net_tpu_torch.datas; "
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in ('torch', 'jax')))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=60, check=True).stdout
+    assert out.strip() == "[]"
 
 
 class _OnCard(torch.Tensor):
