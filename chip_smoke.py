@@ -11,7 +11,8 @@ Phases (any failure exits non-zero before the final line):
    kernels K2; ``csrc/dw_conv.cu``, the depthwise stencil K3;
    ``csrc/sru_direction.cu``, the per-direction SRU kernel K4) with one
    ``nvcc`` each, started together, into
-   ``rtfs_net_tpu_torch/csrc/build/``, timed.
+   ``rtfs_net_tpu_torch/csrc/build/``, and beside them the native PESQ and
+   crc32c extension from ``native/`` (g++), timed.
 3. kernel K1: against its plain PyTorch version on the card, at the
    shapes the serving forward gives it at B = 1, 4, 16 (float32 and
    bfloat16) and B = 128 (bfloat16), with times, the bound and sums per
@@ -72,7 +73,7 @@ Phases (any failure exits non-zero before the final line):
 13. train profile: ``torch.profiler`` over one B=16 bfloat16 step; fails
    if K2's or K3's category shows no time.
 14. fit: the training entry point ``rtfs_net_tpu_torch.train.main`` on a
-   synthetic LRS2-style manifest on disk (16 train and 8 validation
+   synthetic LRS2-style manifest in a temporary directory (16 train and 8 validation
    target-speaker items: 2 s wavs and 50x96x96 uint8 mouth tracks), at full
    width with the FRCNN video model from frames (frozen, weights from seed
    0: the config's pretrained backbone is not in the repository), batch 4,
@@ -89,7 +90,24 @@ Phases (any failure exits non-zero before the final line):
    algorithms (without them two runs of one model differ by ~2e-7). A ``fit``
    line: ms per train step and validation batch, epoch wall time, the share
    of it spent waiting on the loaders, launches per step, peak memory.
-15. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}`` last.
+15. evaluate: the evaluation entry point ``rtfs_net_tpu_torch.test.main`` on
+   the experiment ``fit`` exported, over a synthetic LRS2-style test
+   manifest (12 mixtures of 1.2-4.0 s, 24 target-speaker items with uint8
+   mouth tracks; the dataset crops each to 2 s, as the reference's does),
+   buckets of 4000 samples, eval batch 8 (the fit batch x 2), float32.
+   Every batch launches K1 32 and K3 40 times and nothing else;
+   ``metrics.csv`` has 24 rows plus ``avg``/``std`` with finite SI-SNR,
+   SDR, STOI and PESQ, PESQ from the native extension; ``results.csv`` has
+   the JAX CLI's rows; the first 6 items run again one at a time through
+   the engine give SI-SNR and SDR within 1e-3 dB of the batched run. An
+   ``evaluate`` line: utterances per second, device ms per batch, the
+   host's wait on the card and the scoring pool's idle time, scoring ms per
+   utterance, peak memory, beside the card's name and power limit.
+16. separate: ``rtfs_net_tpu_torch.separate`` on a 6 s wav with its mouth
+   track, plain and in 2 s chunks, each one forward of K1 32 and K3 40
+   launches; the outputs finite and of the input's length.
+17. a ``{"kernels": [...]}`` line (with each kernel's launches on every
+   path), then ``{"ok": true, "device": {...}}`` last.
 
 Every comparison on the card runs with TF32 off (cuDNN convolutions and
 matmuls in full float32), and so do the float32 timings.
@@ -138,6 +156,13 @@ BENCH_CALLS = 6  # timed calls at the benchmark's serving point (bench.py: min o
 FIT_ITEMS = {"tr": 16, "cv": 8}
 FIT_EPOCHS, FIT_BATCH, FIT_WORKERS, FIT_PREEMPT = 2, 4, 4, (2, 1)
 VIDEO_FRAMES, MOUTH_SIZE = 50, 88  # 2 s of 25 fps mouth-ROI frames
+# the evaluate phase: mixtures of the test manifest (two target-speaker
+# items each), their lengths' range in seconds, the items run again one at a
+# time (the first three mixtures), and the separate CLI's input length
+EVAL_MIXTURES, EVAL_SECONDS, SERIAL_ITEMS = 12, (1.2, 4.0), 6
+EVAL_ITEMS = 2 * EVAL_MIXTURES
+EVAL_BUCKET = 4000  # the evaluation entry point's default bucket, samples
+SEPARATE_SECONDS, SEPARATE_CHUNK = 6, 2
 CHANNELS = 64  # TDANet hid_chan: the depthwise convs' channels
 DW_PLANES = {(251, 129): 3, (125, 64): 7}  # K3 launches per TDANet block, by (T, F)
 DW_KERNEL, DW_PADS = (4, 4), ((1, 2), (1, 2))
@@ -1321,10 +1346,11 @@ def tensors_equal(got, want, what):
         fail(f"{what}: {got} != {want}")
 
 
-def check_fit():
-    """The training entry point, end to end on the card (phase 14)."""
+def check_fit(root):
+    """The training entry point, end to end on the card (phase 14), in the
+    directory ``root``. Returns the experiment directory it exported and the
+    path's launch counts."""
     import glob
-    import tempfile
 
     import torch
 
@@ -1332,136 +1358,345 @@ def check_fit():
     from rtfs_net_tpu_torch.models import build_model, serialization
     from rtfs_net_tpu_torch.utils.separator import separate
 
-    with tempfile.TemporaryDirectory() as root:
-        dirs = write_fit_manifest(root)
-        argv = ["--conf-dir", CONFIG, "--train_dir", dirs["tr"], "--valid_dir", dirs["cv"],
-                "--path", os.path.join(root, "log"), "--batch_size", str(FIT_BATCH),
-                "--num_workers", str(FIT_WORKERS), "--device", "cuda",
-                # the seed's frozen backbone: no published weights are read
-                "--pretrain", ""]
-        conf = train.parse_conf(argv + ["--epochs", str(FIT_EPOCHS)])
-        exp_dir = os.path.join(conf["log"]["path"], conf["log"]["exp_name"])
+    dirs = write_fit_manifest(root)
+    argv = ["--conf-dir", CONFIG, "--train_dir", dirs["tr"], "--valid_dir", dirs["cv"],
+            "--path", os.path.join(root, "log"), "--batch_size", str(FIT_BATCH),
+            "--num_workers", str(FIT_WORKERS), "--device", "cuda",
+            # the seed's frozen backbone: no published weights are read
+            "--pretrain", ""]
+    conf = train.parse_conf(argv + ["--epochs", str(FIT_EPOCHS)])
+    exp_dir = os.path.join(conf["log"]["path"], conf["log"]["exp_name"])
 
-        # two epochs from scratch
-        torch.cuda.reset_peak_memory_stats()
-        with FitWatch() as watch:
-            trainer = train.main(conf)
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        watch.check_launches("fit")
-        steps_per_epoch = FIT_ITEMS["tr"] // FIT_BATCH
-        batches_per_epoch = steps_per_epoch + FIT_ITEMS["cv"] // FIT_BATCH
-        if [h["epoch"] for h in trainer.history] != list(range(FIT_EPOCHS)) or \
-                trainer.system.step != FIT_EPOCHS * steps_per_epoch:
-            fail(f"fit: history {trainer.history}, {trainer.system.step} steps")
-        for h in trainer.history:
-            if not (math.isfinite(h["train_loss"]) and math.isfinite(h["val_loss"])):
-                fail(f"fit: epoch {h['epoch']} losses {h['train_loss']}, {h['val_loss']}")
-        for name in ("best_k_models.json", "checkpoints/last.json", "best_model.pth",
-                     "conf.yaml"):
-            if not os.path.isfile(os.path.join(exp_dir, name)):
-                fail(f"fit: {name} missing")
-        if not glob.glob(os.path.join(exp_dir, "tb", "*", "*", "events.out.tfevents.*")):
-            fail("fit: no TensorBoard events")
-        step_ms, val_ms = watch.ms(watch.steps), sorted(watch.ms(watch.vals))
-        first_step_ms = step_ms[0]  # cuDNN's first choices of algorithm
-        step_ms.sort()
-        launches_per_step, launches_per_val = watch.steps[0][0], watch.vals[0][0]
-        print("main path launches (fit): " + json.dumps(
-            {k: sum(got[k] for got, _ in watch.steps + watch.vals) for k in launch_counts()}))
-        history = trainer.history
-        del trainer, watch
-        print("fit " + json.dumps({
-            "dtype": "float32", "B": FIT_BATCH, "items": FIT_ITEMS, "epochs": FIT_EPOCHS,
-            "workers": FIT_WORKERS, "video_model": "FRCNNVideoModel from frames",
-            "ms_per_train_step_median": step_ms[len(step_ms) // 2],
-            "ms_per_train_step_min": step_ms[0],
-            "ms_first_train_step": first_step_ms,
-            "ms_per_val_batch_median": val_ms[len(val_ms) // 2],
-            "epoch_wall_s": [h["wall_s"] for h in history],
-            # epoch 0's wait holds the spawn of both loaders' worker pools
-            "loader_wait_share": [h["loader_wait_s"] / h["wall_s"] for h in history],
-            "loader_wait_ms_per_batch": [h["loader_wait_s"] * 1e3 / batches_per_epoch
-                                         for h in history],
-            "train_loss": [h["train_loss"] for h in history],
-            "val_loss": [h["val_loss"] for h in history],
-            "launches_per_step": launches_per_step, "launches_per_val_batch": launches_per_val,
-            "peak_mem_GiB": peak}))
+    # two epochs from scratch
+    torch.cuda.reset_peak_memory_stats()
+    with FitWatch() as watch:
+        trainer = train.main(conf)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    watch.check_launches("fit")
+    steps_per_epoch = FIT_ITEMS["tr"] // FIT_BATCH
+    batches_per_epoch = steps_per_epoch + FIT_ITEMS["cv"] // FIT_BATCH
+    if [h["epoch"] for h in trainer.history] != list(range(FIT_EPOCHS)) or \
+            trainer.system.step != FIT_EPOCHS * steps_per_epoch:
+        fail(f"fit: history {trainer.history}, {trainer.system.step} steps")
+    for h in trainer.history:
+        if not (math.isfinite(h["train_loss"]) and math.isfinite(h["val_loss"])):
+            fail(f"fit: epoch {h['epoch']} losses {h['train_loss']}, {h['val_loss']}")
+    for name in ("best_k_models.json", "checkpoints/last.json", "best_model.pth",
+                 "conf.yaml"):
+        if not os.path.isfile(os.path.join(exp_dir, name)):
+            fail(f"fit: {name} missing")
+    if not glob.glob(os.path.join(exp_dir, "tb", "*", "*", "events.out.tfevents.*")):
+        fail("fit: no TensorBoard events")
+    step_ms, val_ms = watch.ms(watch.steps), sorted(watch.ms(watch.vals))
+    first_step_ms = step_ms[0]  # cuDNN's first choices of algorithm
+    step_ms.sort()
+    launches_per_step, launches_per_val = watch.steps[0][0], watch.vals[0][0]
+    launches = {k: sum(got[k] for got, _ in watch.steps + watch.vals) for k in launch_counts()}
+    print("main path launches (fit): " + json.dumps(launches))
+    history = trainer.history
+    del trainer, watch
+    print("fit " + json.dumps({
+        "dtype": "float32", "B": FIT_BATCH, "items": FIT_ITEMS, "epochs": FIT_EPOCHS,
+        "workers": FIT_WORKERS, "video_model": "FRCNNVideoModel from frames",
+        "ms_per_train_step_median": step_ms[len(step_ms) // 2],
+        "ms_per_train_step_min": step_ms[0],
+        "ms_first_train_step": first_step_ms,
+        "ms_per_val_batch_median": val_ms[len(val_ms) // 2],
+        "epoch_wall_s": [h["wall_s"] for h in history],
+        # epoch 0's wait holds the spawn of both loaders' worker pools
+        "loader_wait_share": [h["loader_wait_s"] / h["wall_s"] for h in history],
+        "loader_wait_ms_per_batch": [h["loader_wait_s"] * 1e3 / batches_per_epoch
+                                     for h in history],
+        "train_loss": [h["train_loss"] for h in history],
+        "val_loss": [h["val_loss"] for h in history],
+        "launches_per_step": launches_per_step, "launches_per_val_batch": launches_per_val,
+        "peak_mem_GiB": peak}))
 
-        # a third epoch, interrupted by SIGTERM after FIT_PREEMPT[1] + 1 steps
-        conf = train.parse_conf(argv + ["--epochs", str(FIT_EPOCHS + 1)])
-        build_dataloaders = train.build_dataloaders
+    # a third epoch, interrupted by SIGTERM after FIT_PREEMPT[1] + 1 steps
+    conf = train.parse_conf(argv + ["--epochs", str(FIT_EPOCHS + 1)])
+    build_dataloaders = train.build_dataloaders
 
-        def preempting(c):
-            train_loader, val_loader = build_dataloaders(c)
-            return PreemptingLoader(train_loader, FIT_PREEMPT), val_loader
+    def preempting(c):
+        train_loader, val_loader = build_dataloaders(c)
+        return PreemptingLoader(train_loader, FIT_PREEMPT), val_loader
 
-        train.build_dataloaders = preempting
-        try:
-            preempted = train.main(conf)
-        finally:
-            train.build_dataloaders = build_dataloaders
-        with open(os.path.join(exp_dir, "checkpoints", "last.json")) as f:
-            last = json.load(f)
-        want_steps = FIT_EPOCHS * steps_per_epoch + FIT_PREEMPT[1] + 1
-        if last["name"] != "preempt" or last["epoch"] != FIT_EPOCHS - 1 or \
-                preempted.system.step != want_steps:
-            fail(f"preempt: last.json {last}, {preempted.system.step} steps, "
-                 f"want {want_steps}")
-        saved = torch.load(os.path.join(exp_dir, "checkpoints", "preempt.pt"),
-                           map_location="cpu", weights_only=True)
-        tensors_equal(preempted.system.state_dict(), saved, "preempt checkpoint")
-        del preempted
+    train.build_dataloaders = preempting
+    try:
+        preempted = train.main(conf)
+    finally:
+        train.build_dataloaders = build_dataloaders
+    with open(os.path.join(exp_dir, "checkpoints", "last.json")) as f:
+        last = json.load(f)
+    want_steps = FIT_EPOCHS * steps_per_epoch + FIT_PREEMPT[1] + 1
+    if last["name"] != "preempt" or last["epoch"] != FIT_EPOCHS - 1 or \
+            preempted.system.step != want_steps:
+        fail(f"preempt: last.json {last}, {preempted.system.step} steps, "
+             f"want {want_steps}")
+    saved = torch.load(os.path.join(exp_dir, "checkpoints", "preempt.pt"),
+                       map_location="cpu", weights_only=True)
+    tensors_equal(preempted.system.state_dict(), saved, "preempt checkpoint")
+    del preempted
 
-        # a fresh run resumes from 'preempt' and finishes the third epoch
-        def resumed_as_saved(system):
-            tensors_equal(system.state_dict(), saved, "resumed state")
-            print(f"resume: {system.step} steps; parameters and optimizer state equal to "
-                  "the preempt checkpoint's, bit for bit")
+    # a fresh run resumes from 'preempt' and finishes the third epoch
+    def resumed_as_saved(system):
+        tensors_equal(system.state_dict(), saved, "resumed state")
+        print(f"resume: {system.step} steps; parameters and optimizer state equal to "
+              "the preempt checkpoint's, bit for bit")
 
-        with FitWatch(before_first_step=resumed_as_saved) as watch:
-            resumed = train.main(conf)
-        watch.check_launches("resumed fit")
-        # the interrupted epoch restarts from the mid-epoch state
-        if resumed.start_epoch != FIT_EPOCHS or [h["epoch"] for h in resumed.history] != [
-                FIT_EPOCHS] or resumed.system.step != want_steps + steps_per_epoch:
-            fail(f"resume: start epoch {resumed.start_epoch}, history {resumed.history}, "
-                 f"{resumed.system.step} steps")
+    with FitWatch(before_first_step=resumed_as_saved) as watch:
+        resumed = train.main(conf)
+    watch.check_launches("resumed fit")
+    # the interrupted epoch restarts from the mid-epoch state
+    if resumed.start_epoch != FIT_EPOCHS or [h["epoch"] for h in resumed.history] != [
+            FIT_EPOCHS] or resumed.system.step != want_steps + steps_per_epoch:
+        fail(f"resume: start epoch {resumed.start_epoch}, history {resumed.history}, "
+             f"{resumed.system.step} steps")
 
-        # the exported best model against the checkpoint it came from
-        best = resumed.ckpt.best_name()
-        video = resumed.system.video_model
-        ckpt_model = build_model(conf["audionet"], device="cuda")
-        ckpt_model.load_state_dict(resumed.ckpt.restore(best, map_location="cpu")["model"])
-        exported, package = serialization.load_model(os.path.join(exp_dir, "best_model.pth"),
-                                                     device="cuda")
-        _, val_loader = build_dataloaders(conf)
-        try:
-            mix, _, frames, _ = next(iter(val_loader))
-        finally:
-            val_loader.close()
-        device = next(ckpt_model.parameters()).device
-        mix, frames = torch.from_numpy(mix).to(device), torch.from_numpy(frames).to(device)
-        tensors_equal(exported.state_dict(), ckpt_model.state_dict(), "best_model.pth")
-        # under cuDNN's deterministic algorithms equal weights give equal outputs
-        deterministic = torch.backends.cudnn.deterministic
-        torch.backends.cudnn.deterministic = True
-        try:
-            want, got = (separate(m, mix, frames, video_model=video)
-                         for m in (ckpt_model, exported))
-        finally:
-            torch.backends.cudnn.deterministic = deterministic
-        err = float((got - want).abs().max())
-        print(f"export: best_model.pth ({package['model_name']}, from {best}) vs its "
-              f"checkpoint on a validation batch {tuple(frames.shape)}: state dicts equal; "
-              f"separate() max_abs_err {err} (tol 0), max|ref| {float(want.abs().max())}, "
-              "float32")
-        if err != 0 or not bool(torch.isfinite(got).all()):
-            fail("export: best_model.pth separates differently from its checkpoint")
-        del resumed, ckpt_model, exported
+    # the exported best model against the checkpoint it came from
+    best = resumed.ckpt.best_name()
+    video = resumed.system.video_model
+    ckpt_model = build_model(conf["audionet"], device="cuda")
+    ckpt_model.load_state_dict(resumed.ckpt.restore(best, map_location="cpu")["model"])
+    exported, package = serialization.load_model(os.path.join(exp_dir, "best_model.pth"),
+                                                 device="cuda")
+    _, val_loader = build_dataloaders(conf)
+    try:
+        mix, _, frames, _ = next(iter(val_loader))
+    finally:
+        val_loader.close()
+    device = next(ckpt_model.parameters()).device
+    mix, frames = torch.from_numpy(mix).to(device), torch.from_numpy(frames).to(device)
+    tensors_equal(exported.state_dict(), ckpt_model.state_dict(), "best_model.pth")
+    # under cuDNN's deterministic algorithms equal weights give equal outputs
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        want, got = (separate(m, mix, frames, video_model=video)
+                     for m in (ckpt_model, exported))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    err = float((got - want).abs().max())
+    print(f"export: best_model.pth ({package['model_name']}, from {best}) vs its "
+          f"checkpoint on a validation batch {tuple(frames.shape)}: state dicts equal; "
+          f"separate() max_abs_err {err} (tol 0), max|ref| {float(want.abs().max())}, "
+          "float32")
+    if err != 0 or not bool(torch.isfinite(got).all()):
+        fail("export: best_model.pth separates differently from its checkpoint")
+    del resumed, ckpt_model, exported
+    return exp_dir, launches
 
+
+def write_eval_manifest(root):
+    """An LRS2-style ``tt`` manifest under ``root``: ``EVAL_MIXTURES``
+    mixtures whose lengths are drawn from ``EVAL_SECONDS`` (mix, s1, s2
+    wavs), with a 96x96 uint8 mouth track of the matching 25 fps length per
+    speaker. Returns its directory."""
+    import numpy as np
+
+    from rtfs_net_tpu_torch.datas import wavio
+
+    rng = np.random.default_rng(10)
+    d = os.path.join(root, "tt")
+    os.makedirs(d)
+    rows = {"mix": [], "s1": [], "s2": []}
+    for i in range(EVAL_MIXTURES):
+        n = int(rng.uniform(*EVAL_SECONDS) * 16000)
+        wavs = {name: os.path.join(d, f"{name}_{i}.wav") for name in rows}
+        for name, path in wavs.items():
+            wavio.write(path, 0.1 * rng.standard_normal(n).astype(np.float32), 16000)
+        rows["mix"].append([wavs["mix"], n])
+        for spk in ("s1", "s2"):
+            mouth = os.path.join(d, f"{spk}_{i}.npz")
+            np.savez_compressed(mouth, data=rng.integers(
+                0, 256, (-(-n * 25 // 16000), 96, 96), dtype=np.uint8))
+            rows[spk].append([wavs[spk], mouth, n])
+    for name, data in rows.items():
+        with open(os.path.join(d, f"{name}.json"), "w") as f:
+            json.dump(data, f)
+    return d
+
+
+class EvalWatch:
+    """Wraps ``evaluation.forward_batch`` for one run of the evaluation
+    engine: each batch's kernel launches and size are recorded."""
+
+    def __enter__(self):
+        from rtfs_net_tpu_torch import evaluation
+
+        self.original, self.calls = evaluation.forward_batch, []
+
+        def watched(model, video_apply, mix, mouths):
+            before = launch_counts()
+            out = self.original(model, video_apply, mix, mouths)
+            self.calls.append(({k: n - before[k] for k, n in launch_counts().items()},
+                               mix.shape[0]))
+            return out
+
+        evaluation.forward_batch = watched
+        return self
+
+    def __exit__(self, *exc):
+        from rtfs_net_tpu_torch import evaluation
+
+        evaluation.forward_batch = self.original
+
+    def check_launches(self, stats):
+        """Every batch launched K1 32 and K3 ``DW_LAUNCHES`` times and
+        nothing else, and the engine timed the batches on the card."""
+        want = {"K1": 32, "K3": DW_LAUNCHES}
+        for i, (got, size) in enumerate(self.calls):
+            if got != {k: want.get(k, 0) for k in got}:
+                fail(f"evaluate: batch {i} (of {size}) launched {got}, want {want} and no others")
+        if stats["batch_clock"] != "cuda_events":
+            fail(f"evaluate: batches timed by {stats['batch_clock']}")
+        return want
+
+
+def metric_rows(path):
+    """metrics.csv's utterance rows, by key: the sorted SI-SNR and SDR values
+    of the key's rows (a mixture's two target-speaker items share its key)."""
+    import csv
+
+    with open(path) as f:
+        rows = list(csv.DictReader(f))
+    by_key = collections.defaultdict(lambda: ([], []))
+    for r in rows:
+        if r["snt_id"] not in ("avg", "std"):
+            by_key[r["snt_id"]][0].append(float(r["si-snr"]))
+            by_key[r["snt_id"]][1].append(float(r["sdr"]))
+    return rows, {k: (sorted(a), sorted(b)) for k, (a, b) in by_key.items()}
+
+
+def check_evaluate(root, exp_dir, smi):
+    """The evaluation entry point on the experiment ``fit`` exported (phase
+    15). Returns the path's launch counts."""
+    import numpy as np
+    import torch
+
+    from rtfs_net_tpu_torch import test as evaluate_cli
+    from rtfs_net_tpu_torch import train
+    from rtfs_net_tpu_torch.datas import AVSpeechDataset
+    from rtfs_net_tpu_torch.evaluation import normalize_mouths, run_batched_eval
+    from rtfs_net_tpu_torch.losses import PITLossWrapper, pairwise_neg_sisdr
+    from rtfs_net_tpu_torch.metrics import ALLMetricsTracker, pesq_backend
+    from rtfs_net_tpu_torch.models.serialization import load_model
+
+    test_dir = write_eval_manifest(root)
+    conf = evaluate_cli.parse_conf(["--conf-dir", os.path.join(exp_dir, "conf.yaml"),
+                                    "--test-dir", test_dir, "--device", "cuda"])
+    eval_batch = 2 * conf["training"]["batch_size"]
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    with EvalWatch() as watch:
+        t0 = time.perf_counter()
+        out = evaluate_cli.main(conf)
+        main_s = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print("main path launches (evaluate): " + json.dumps(launches))
+    stats = out["eval"]
+    want = watch.check_launches(stats)
+    sizes = [size for _, size in watch.calls]
+    if sum(sizes) != EVAL_ITEMS or max(sizes) != eval_batch or stats["batches"] != len(sizes):
+        fail(f"evaluate: batches {sizes}, stats {stats}")
+
+    rows, batched = metric_rows(os.path.join(out["save_dir"], "metrics.csv"))
+    if len(rows) != EVAL_ITEMS + 2 or [r["snt_id"] for r in rows[-2:]] != ["avg", "std"]:
+        fail(f"evaluate: metrics.csv has {len(rows)} rows, ending {rows[-2:]}")
+    if pesq_backend() != "native":
+        fail(f"evaluate: PESQ came from {pesq_backend()!r}, not the native extension")
+    for r in rows[:-2]:
+        for col in ("si-snr", "sdr", "stoi", "pesq"):
+            if not math.isfinite(float(r[col])):
+                fail(f"evaluate: {r['snt_id']} {col} = {r[col]}")
+    keys = [k for k, _ in out["results"]]
+    head = ["Model", "Params (M)", "MACs (G, 2s)", "Videomodel MACs (G, 2s)",
+            "si-snr_i", "sdr_i", "pesq", "stoi", "si-snr", "sdr"]
+    if keys[:len(head)] != head or "enc_dec_params_win" not in keys:
+        fail(f"evaluate: results.csv rows {keys}")
+    with open(os.path.join(out["save_dir"], "results.csv")) as f:
+        if f.readline().strip() != "Key,Value" or len(f.readlines()) != len(keys):
+            fail("evaluate: results.csv on disk differs from the rows returned")
+
+    # the first SERIAL_ITEMS utterances again, one at a time, through the engine
+    model, _ = load_model(os.path.join(exp_dir, "best_model.pth"), device="cuda", conf=conf)
+    video = train.build_video_model(conf, "cuda")
+    test_set = AVSpeechDataset(test_dir, n_src=1, sample_rate=16000, segment=None,
+                               normalize_audio=conf["data"]["normalize_audio"])
+    serial_csv = os.path.join(root, "serial.csv")
+    tracker = ALLMetricsTracker(save_file=serial_csv)
+    run_batched_eval(model, [test_set[i] for i in range(SERIAL_ITEMS)], tracker,
+                     PITLossWrapper(pairwise_neg_sisdr), lambda m: video(normalize_mouths(m)),
+                     EVAL_BUCKET, 1, 16000, progress_every=0)
+    tracker.final()
+    _, serial = metric_rows(serial_csv)
+    err = max(abs(a - b) for key, pair in serial.items()
+              for got, ref in zip(pair, batched[key]) for a, b in zip(got, ref))
+    print(f"evaluate: {SERIAL_ITEMS} utterances one at a time vs the batched run: "
+          f"SI-SNR and SDR max_abs_err {err} dB (tol 1e-3)")
+    if not err <= 1e-3:
+        fail("evaluate: the serial pass disagrees with the batched run")
+    del model, video
+
+    means = {r[0]: r[1] for r in out["results"][4:10]}
+    print("evaluate " + json.dumps({
+        "card": smi, "dtype": "float32", "video_model": "FRCNNVideoModel from frames",
+        "items": EVAL_ITEMS, "seconds": EVAL_SECONDS, "bucket": EVAL_BUCKET,
+        "eval_batch_size": eval_batch, "batch_sizes": sizes,
+        "utt_per_s": stats["utterances"] / stats["wall_s"], "eval_wall_s": stats["wall_s"],
+        "test_main_wall_s": main_s,
+        "batch_ms_median": float(np.median(stats["batch_ms"])), "batch_ms": stats["batch_ms"],
+        "wait_for_device_s": stats["wait_for_device_s"],
+        "scoring_idle_s": stats["scoring_idle_s"], "drain_s": stats["drain_s"],
+        "score_ms_per_utt": stats["score_ms_per_utt"], "pesq_backend": pesq_backend(),
+        "launches_per_batch": want, "peak_mem_GiB": peak, "means": means,
+        "macs": dict(out["results"][2:4])}))
+    return launches
+
+
+def check_separate_cli(root, exp_dir):
+    """The separation entry point on the experiment ``fit`` exported (phase
+    16): a ``SEPARATE_SECONDS`` s wav with its mouth track, plain and in
+    ``SEPARATE_CHUNK`` s chunks. Returns the path's launch counts."""
+    import numpy as np
+
+    from rtfs_net_tpu_torch import separate as separate_cli
+    from rtfs_net_tpu_torch.datas import wavio
+
+    rng = np.random.default_rng(11)
+    n = SEPARATE_SECONDS * 16000
+    wav, mouth = os.path.join(root, "long.wav"), os.path.join(root, "long.npz")
+    wavio.write(wav, 0.1 * rng.standard_normal(n).astype(np.float32), 16000)
+    np.savez_compressed(mouth, data=rng.integers(0, 256, (SEPARATE_SECONDS * 25, 96, 96),
+                                                 dtype=np.uint8))
+    reset_launch_counts()
+    times = {}
+    for chunk in (0, SEPARATE_CHUNK):
+        argv = ["--model", os.path.join(exp_dir, "best_model.pth"), "--input", wav,
+                "--mouth", mouth, "--videonet-conf", os.path.join(exp_dir, "conf.yaml"),
+                "--output", os.path.join(root, f"separated_{chunk}"),
+                "--chunk-seconds", str(chunk), "--device", "cuda"]
+        t0 = time.perf_counter()
+        (path,) = launches_of(lambda: separate_cli.main(separate_cli.parse_args(argv)),
+                              {"K1": 32, "K3": DW_LAUNCHES}, f"separate chunk={chunk}")
+        times[chunk] = (time.perf_counter() - t0) * 1e3
+        out, sr = wavio.read(path)
+        if sr != 16000 or out.shape != (n,) or not np.isfinite(out).all() or \
+                not np.abs(out).max() > 0:
+            fail(f"separate chunk={chunk}: {path} holds {out.shape} at {sr} Hz")
+    launches = launch_counts()
+    print("main path launches (separate): " + json.dumps(launches))
+    print("separate " + json.dumps({
+        "seconds": SEPARATE_SECONDS, "dtype": "float32", "with": "mouth npz, FRCNN video model",
+        "ms_plain": times[0], f"ms_chunks_of_{SEPARATE_CHUNK}s": times[SEPARATE_CHUNK],
+        "timing": "host clock around the CLI's main: load, video model, one forward, wav write",
+        "output": "finite, the input's length"}))
+    return launches
 
 
 def main():
+    import tempfile
+
     import torch
 
     if not torch.cuda.is_available():
@@ -1478,13 +1713,20 @@ def main():
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
 
+    from rtfs_net_tpu_torch._native import load_native
+
     t0 = time.perf_counter()
     sources = [m.SOURCE for m in kernel_modules()]
-    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+    with concurrent.futures.ThreadPoolExecutor(len(sources) + 1) as pool:
+        # the native PESQ/crc32c extension (native/, g++) builds beside the kernels
+        native = pool.submit(load_native)
         list(pool.map(lambda src: build.build(build.CSRC / src), sources))
+        if native.result() is None:
+            fail("build: the native extension (native/) did not build")
     for src in sources:
         build.load(src)
-    print(f"build: {', '.join(sources)} built and loaded in {time.perf_counter() - t0:.3f} s")
+    print(f"build: {', '.join(sources)} and the native extension built and loaded in "
+          f"{time.perf_counter() - t0:.3f} s")
     sru = check_sru_kernel()
     dw = check_dw_conv_kernel()
     direction = check_sru_direction_kernel()
@@ -1505,7 +1747,14 @@ def main():
     profile_training(base)
     del base
     torch.cuda.empty_cache()
-    check_fit()
+    with tempfile.TemporaryDirectory() as root:
+        exp_dir, fit_launches = check_fit(root)
+        torch.cuda.empty_cache()
+        eval_launches = check_evaluate(root, exp_dir, smi)
+        separate_launches = check_separate_cli(root, exp_dir)
+    by_path = {"serving": launches, "serving_from_frames": frame_launches,
+               "per_direction": direction_launches, "train": train_launches,
+               "fit": fit_launches, "evaluate": eval_launches, "separate": separate_launches}
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     # no single PyTorch call computes an SRU recurrence or its backward;
@@ -1532,6 +1781,11 @@ def main():
                     "replaces": "rtfs_net_tpu/ops/pallas/sru_kernel.py:92",
                     "launches": direction_launches["K4"],
                     **{key: direction[key] for key in keys}, "library_ms": None})
+    # each kernel's launches on every path that ran it, each path counted
+    # from 0 just before it and read just after
+    for entry, count in zip(summary, ("K1", "K2_forward", "K2_backward", "K3", "K4")):
+        entry["launches_by_path"] = {path: counts[count] for path, counts in by_path.items()
+                                     if counts[count]}
     print(smi)
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

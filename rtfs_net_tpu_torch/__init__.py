@@ -12,7 +12,10 @@ and backward, under autograd), the stride-1 depthwise stencil
 (``csrc/dw_conv.cu``) and the per-direction SRU recurrence
 (``csrc/sru_direction.cu``); everything else is plain PyTorch. Entry
 points run on ``cuda`` unless the caller passes ``device="cpu"``;
-``python -m rtfs_net_tpu_torch.train`` trains from a YAML config.
+``python -m rtfs_net_tpu_torch.train`` trains from a YAML config,
+``.test`` evaluates an experiment, ``.separate`` separates a wav,
+``.import_checkpoint`` ingests a reference checkpoint and ``.local_test``
+runs a synthetic smoke epoch.
 
 This ``__init__`` imports nothing: the data loader's spawned workers
 import the package without loading torch.

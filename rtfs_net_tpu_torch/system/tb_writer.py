@@ -3,13 +3,15 @@ reference: vendored rank-zero ``TensorBoardLogger``,
 ``src/system/tensorboard.py:40-294``).
 
 Self-contained: hand-encodes the Event protobuf wire format and the
-tfevents record framing (length + masked CRC32C, the checksum from a
-pure-Python table), so scalar and hparams logging needs neither the
+tfevents record framing (length + masked CRC32C: the repo's native
+extension's ``crc32c`` where it builds, else a pure-Python table, as the
+JAX writer does), so scalar and hparams logging needs neither the
 tensorboard package nor protobuf. Files are readable by standard
 TensorBoard.
 """
 from __future__ import annotations
 
+import functools
 import os
 import socket
 import struct
@@ -32,11 +34,26 @@ def _make_crc_table():
 _CRC_TABLE = _make_crc_table()
 
 
-def crc32c(data: bytes) -> int:
+@functools.cache
+def _native_crc32c():
+    """The native extension's ``crc32c``, or None where it does not build
+    (resolved at the first record, so importing this module builds nothing)."""
+    from .._native import load_native
+
+    native = load_native()
+    return getattr(native, "crc32c", None)
+
+
+def crc32c_py(data: bytes) -> int:
     crc = 0xFFFFFFFF
     for b in data:
         crc = _CRC_TABLE[(crc ^ b) & 0xFF] ^ (crc >> 8)
     return crc ^ 0xFFFFFFFF
+
+
+def crc32c(data: bytes) -> int:
+    native = _native_crc32c()
+    return native(data) if native is not None else crc32c_py(data)
 
 
 def _masked_crc(data: bytes) -> int:

@@ -1,5 +1,7 @@
-"""Host utilities of the port: the config parser (exported here), and
-``separate`` and the JAX-variables converter in their modules. This
+"""Host utilities of the port: the config parser (exported here), and in
+their modules ``separate``, the JAX-variables converter, feature chunking
+(``features``), parameter and MAC counts (``flops``) and timing
+(``profiling``). This
 ``__init__`` imports no torch: the training entry point imports it, and
 the data loader's spawned workers import that entry point again."""
 from .parser import (

@@ -42,17 +42,22 @@ def test_new_modules_are_covered():
             "datas/wavio.py", "datas/transform.py", "datas/avspeech_dataset.py",
             "datas/loader.py", "utils/parser.py", "system/schedulers.py",
             "system/tb_writer.py", "system/checkpoint.py", "system/trainer.py",
-            "models/serialization.py", "train.py"} <= names
+            "models/serialization.py", "train.py", "_native.py", "metrics/__init__.py",
+            "metrics/stoi.py", "metrics/pesq.py", "metrics/allwrapper.py", "utils/features.py",
+            "utils/flops.py", "utils/profiling.py", "evaluation.py", "test.py", "separate.py",
+            "local_test.py", "import_checkpoint.py"} <= names
 
 
 def test_loader_workers_import_no_torch():
     """The data loader's spawned workers import the dataset's package and
-    the training entry point (the main module); neither may load torch,
-    which would cost each worker seconds and could open a CUDA context."""
+    the entry point that started them (the main module: training,
+    evaluation, or the smoke run's fake dataset); none may load torch, which
+    would cost each worker seconds and could open a CUDA context."""
     import subprocess
     import sys
 
-    code = ("import sys, rtfs_net_tpu_torch.train, rtfs_net_tpu_torch.datas; "
+    code = ("import sys, rtfs_net_tpu_torch.train, rtfs_net_tpu_torch.test, "
+            "rtfs_net_tpu_torch.local_test, rtfs_net_tpu_torch.datas; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in ('torch', 'jax')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=60, check=True).stdout
