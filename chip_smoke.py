@@ -19,6 +19,10 @@ Phases (any failure exits non-zero before the final line):
    forward; and at edge shapes (``SRU_EDGE``: L = 1 and 2, rows 125, 63
    and 500, k = 3 and 4, one and two directions, a slice at an odd offset)
    in both dtypes. Fails unless both the ring and the narrow kernel ran.
+   ``torch.library.opcheck`` of the registered op ``rtfs::sru_stack_layer``
+   on small edge shapes (k = 3 and 4, one direction, bfloat16 at an odd
+   offset): schema, fake implementation against the kernel's outputs,
+   autograd registration, AOT dispatch.
 4. kernel K3: against its plain version at (B, 64, 251, 129) and
    (B, 64, 125, 64) for B = 16 and 128 with the 4x4 kernel and pads (1, 2)
    of the main path, and at small shapes with a 3x3, a 2x3 and a 7x2
@@ -26,13 +30,15 @@ Phases (any failure exits non-zero before the final line):
    ``F.pad`` + ``F.conv2d(groups=C)`` on the same inputs; its backward
    against autograd through the plain version; edge cases (odd F, T not a
    multiple of the band, B*C = 1, x a slice at an odd offset, uneven pads,
-   other kernels), forward and dx, in both dtypes.
+   other kernels), forward and dx, in both dtypes; ``opcheck`` of
+   ``rtfs::dw_conv2d_same`` on three edge cases.
 5. kernel K4: against its plain version at the serving shapes of B = 1,
    4, 16 ((57, 125 B, 32) and (118, 64 B, 32)), both directions, on slices
    of one projection, float32 and bfloat16, with times and the bound; and
    at edge shapes (``SRU_DIR_EDGE``: L = 1 and 2, rows 125, 63 and 500, odd
    H, slices at odd offsets). Fails unless both the ring and the narrow
-   kernel ran.
+   kernel ran. ``opcheck`` of ``rtfs::sru_direction`` on slices, one at an
+   odd offset.
 6. serving: RTFS-Net-4 at full width (random weights from seed 0) answers
    requests of 2 s mixtures plus (B, 512, 50) lip embeddings at B = 1, 4,
    16 through ``separate()``; K1 must launch exactly 32 times and K3
@@ -60,7 +66,9 @@ Phases (any failure exits non-zero before the final line):
    the four shapes the B=4 and B=16 train steps give them, k = 3 and 4,
    float32 and bfloat16, with times and bounds; and at edge shapes (rows
    125, 63 and 500, L = 1 and 2, k = 3 and 4, one and two directions,
-   operands sliced at an odd offset) in both dtypes.
+   operands sliced at an odd offset) in both dtypes; ``opcheck`` of
+   ``rtfs::sru_train_forward`` and ``rtfs::sru_train_backward`` on K1's
+   edge cases.
 11. training: ``System.train_step`` of RTFS-Net-4 at full width (AdamW lr
    1e-3, wd 0.1, clip 5.0, PIT neg-SNR; the target is the mixture) at
    B = 4 and 16, in float32 and with ``compute_dtype=bfloat16``: each step
@@ -106,7 +114,22 @@ Phases (any failure exits non-zero before the final line):
 16. separate: ``rtfs_net_tpu_torch.separate`` on a 6 s wav with its mouth
    track, plain and in 2 s chunks, each one forward of K1 32 and K3 40
    launches; the outputs finite and of the input's length.
-17. a ``{"kernels": [...]}`` line (with each kernel's launches on every
+17. export: ``python -m rtfs_net_tpu_torch.export_serving`` on the
+   experiment ``fit`` exported, float32, buckets (1, 4), traced on the
+   card: each bucket's graph holds 32 ``rtfs::sru_stack_layer`` and 40
+   ``rtfs::dw_conv2d_same`` nodes and no other ``rtfs::`` node. Loaded with
+   ``export.load_artifact``, it serves requests of B = 1, 3 (padded to 4),
+   4 and 5 (4 + 1), each within 1e-5·max|ref| of the same weights run
+   eagerly under cuDNN's deterministic algorithms, each bucket call
+   launching K1 32 and K3 40 times and nothing else. ``separate --model
+   model.rtfsx`` on 2 s of phase 16's wav with its 50 frames (one B=1
+   call: finite, the input's length), and its refusal of the 6 s wav
+   without ``--chunk-seconds``. Then the serving phase's random-weight
+   model exported at B = 128 in bfloat16 (``bench.py``'s point), timed
+   beside the eager model in turns; an ``export`` line: export seconds per
+   bucket, artifact MB, load seconds, ms per call eager and artifact at
+   B=1 float32 and B=128 bfloat16, launches, peak memory.
+18. a ``{"kernels": [...]}`` line (with each kernel's launches on every
    path), then ``{"ok": true, "device": {...}}`` last.
 
 Every comparison on the card runs with TF32 off (cuDNN convolutions and
@@ -163,10 +186,14 @@ EVAL_MIXTURES, EVAL_SECONDS, SERIAL_ITEMS = 12, (1.2, 4.0), 6
 EVAL_ITEMS = 2 * EVAL_MIXTURES
 EVAL_BUCKET = 4000  # the evaluation entry point's default bucket, samples
 SEPARATE_SECONDS, SEPARATE_CHUNK = 6, 2
+# the export phase: the bucketed float32 artifact's batch sizes and the
+# request batches served through it (3 padded to 4, 5 in chunks of 4 and 1)
+EXPORT_BUCKETS, EXPORT_REQUESTS = (1, 4), (1, 3, 4, 5)
 CHANNELS = 64  # TDANet hid_chan: the depthwise convs' channels
 DW_PLANES = {(251, 129): 3, (125, 64): 7}  # K3 launches per TDANet block, by (T, F)
 DW_KERNEL, DW_PADS = (4, 4), ((1, 2), (1, 2))
 DW_LAUNCHES = REPEATS * sum(DW_PLANES.values())  # 40 per forward
+SRU_LAUNCHES = REPEATS * 2 * sum(SRU_LAYERS.values())  # 32 per forward: 2 DualPathRNNs
 # small K3 cases: (shape, kernel, pads); the last takes the generic kernel
 DW_SMALL = [((2, 5, 33, 17), (3, 3), ((1, 1), (1, 1))),
             ((3, 4, 19, 40), (2, 3), ((0, 1), (1, 1))),
@@ -385,6 +412,7 @@ def check_sru_kernel():
                     acc[key] += n * value
                 del sets, u, skip, got, want
     check_sru_edges(gen, max_err, depths)
+    opcheck("sru_stack_layer", sru_op_cases(gen))
     if not (0 in depths and depths - {0}):
         fail(f"sru_stack_layer: launch plans {sorted(depths)} did not run both the ring "
              "and the narrow kernel")
@@ -442,6 +470,24 @@ def check_sru_edges(gen, max_err, depths):
             max_err[dtype] = max(max_err[dtype], err)
 
 
+def sru_op_cases(gen):
+    """Argument tuples of the SRU layer ops at small edge shapes: k = 3 with
+    skip, k = 4 without, one direction, and bfloat16 operands at an odd
+    element offset (the narrow kernel)."""
+    import torch
+
+    cases = []
+    for L, rows, k, ndir, offset, dtype in ((2, 63, 3, 2, 0, torch.float32),
+                                            (1, 125, 4, 1, 0, torch.float32),
+                                            (2, 125, 3, 2, 1, torch.bfloat16)):
+        O = H * ndir
+        u = edge_operand((L, k * O, rows), dtype, offset, gen)
+        skip = edge_operand((L, O, rows), dtype, offset, gen) if k == 3 else None
+        v, b = (0.5 * torch.randn(2 * O, generator=gen, device="cuda") for _ in range(2))
+        cases.append((u, skip, v, b, H, k, ndir))
+    return cases
+
+
 def edge_operand(shape, dtype, offset, gen):
     """A contiguous ``shape`` tensor that starts ``offset`` elements into
     its storage (odd offsets misalign a bfloat16 tensor's 4-byte words)."""
@@ -449,6 +495,22 @@ def edge_operand(shape, dtype, offset, gen):
 
     flat = torch.randn(math.prod(shape) + offset, generator=gen, device="cuda")
     return flat.to(dtype)[offset:].view(shape)
+
+
+def opcheck(op, cases):
+    """``torch.library.opcheck`` of the registered op ``rtfs::<op>`` on each
+    of ``cases`` (argument tuples of CUDA tensors): its schema, its fake
+    implementation against the kernel's outputs, its autograd registration
+    and tracing through AOT dispatch. Any failure fails the run."""
+    import torch
+
+    overload = getattr(torch.ops.rtfs, op).default
+    for args in cases:
+        result = torch.library.opcheck(overload, args)
+        if set(result.values()) != {"SUCCESS"}:
+            fail(f"opcheck rtfs::{op}: {result}")
+    print(f"opcheck rtfs::{op}: {len(cases)} cases on {torch.cuda.get_device_name(0)}, "
+          "schema, fake tensor, autograd registration, aot dispatch: SUCCESS")
 
 
 def dw_library(x, w, pads):
@@ -543,6 +605,13 @@ def check_dw_conv_kernel():
         fail("dw_conv2d_same backward disagrees with autograd through the plain version")
 
     check_dw_conv_edges(gen, max_err)
+    opcheck("dw_conv2d_same", [
+        (edge_operand(shape, dtype, offset, gen),
+         torch.randn((shape[1], 1, *kernel), generator=gen, device="cuda"),
+         [p for lo_hi in pads for p in lo_hi])
+        for (shape, kernel, pads, offset), dtype in zip(DW_EDGE[:3], (torch.float32,
+                                                                      torch.bfloat16,
+                                                                      torch.float32))])
     print(f"dw_conv2d_same: max_abs_err float32 {max_err[torch.float32]} "
           f"(tol 1e-5 + 1e-5*|ref|), bfloat16 {max_err[torch.bfloat16]} "
           f"(tol {BF16_ATOL} + {BF16_RTOL}*|ref|)")
@@ -652,6 +721,7 @@ def check_sru_direction_kernel():
                     acc[key] += calls * value
             del us
     check_sru_direction_edges(gen, max_err, depths)
+    opcheck("sru_direction", sru_direction_op_cases(gen))
     if not (0 in depths and depths - {0}):
         fail(f"sru_direction: launch plans {sorted(depths)} did not run both the ring "
              "and the narrow kernel")
@@ -689,6 +759,21 @@ def check_sru_direction_edges(gen, max_err, depths):
                 fail(f"sru_direction edge L={L} rows={rows} H={Hd} offset={offset} "
                      f"reverse={reverse} {dtype}: max_abs_err {err} out of tolerance")
             max_err[dtype] = max(max_err[dtype], err)
+
+
+def sru_direction_op_cases(gen):
+    """Argument tuples of ``rtfs::sru_direction`` at small edge shapes: slices
+    of one projection, float32 forward and bfloat16 reversed at an odd
+    element offset (the narrow kernel)."""
+    import torch
+
+    cases = []
+    for L, rows, Hd, offset, dtype, reverse in ((2, 63, 7, 0, torch.float32, False),
+                                                (2, 125, 32, 1, torch.bfloat16, True)):
+        u = edge_operand((L, rows, 4, 2 * Hd), dtype, offset, gen)
+        gates = [0.5 * torch.randn(Hd, generator=gen, device="cuda") for _ in range(4)]
+        cases.append((*(u[:, :, c, :Hd] for c in range(4)), *gates, reverse))
+    return cases
 
 
 def serving_setup():
@@ -1016,6 +1101,14 @@ def check_sru_train_kernel():
                         acc["ops_ms"] += n * ops_ms
                 del sets, cs, u, skip, dh, h, c, got_b, want_b
     check_sru_train_edges(gen)
+    cases = sru_op_cases(gen)
+    opcheck("sru_train_forward", cases)
+    backward_cases = []
+    for u, skip, v, b, Hd, k, ndir in cases:
+        _, c = ktrain.sru_train_forward(u, skip, v, b, H=Hd, k=k, ndir=ndir)
+        dh = torch.randn(c.shape, generator=gen, device="cuda").to(c.dtype)
+        backward_cases.append((u, skip, c, v, b, dh, Hd, k, ndir))
+    opcheck("sru_train_backward", backward_cases)
     out = {}
     for which, acc in per_step.items():
         row = {"max_abs_err": max_err[which], "ms": acc["ms"], "plain_ms": acc["plain_ms"],
@@ -1694,6 +1787,194 @@ def check_separate_cli(root, exp_dir):
     return launches
 
 
+def bucket_calls(n, buckets=EXPORT_BUCKETS):
+    """The bucket calls an artifact makes for a request of ``n``: the
+    smallest bucket that fits, else chunks of the largest."""
+    calls = []
+    while n > 0:
+        b = next((s for s in buckets if s >= n), buckets[-1])
+        calls.append(b)
+        n -= min(n, b)
+    return calls
+
+
+def eager_serving(model, dtype):
+    """What an artifact computes, run eagerly: float32 in, the model in
+    ``dtype``, float32 out (``export._Serving``)."""
+    import torch
+
+    def forward(mix, emb):
+        with torch.inference_mode():
+            return model(mix.to(dtype), emb.to(dtype)).float()
+
+    return forward
+
+
+def turns_ms(fns, requests):
+    """Host-clock ms of synchronised calls of each of ``fns`` (name -> fn of
+    one request), in turns: one warm-up each, then the first, second,
+    second, first over ``requests`` split in halves, each request once per
+    fn. Returns sorted times by name."""
+    import torch
+
+    (a, fa), (b, fb) = fns.items()
+    times = {a: [], b: []}
+    half = len(requests) // 2
+    for fn in (fa, fb):
+        fn(*requests[0])
+    for name, fn, reqs in ((a, fa, requests[1:1 + half]), (b, fb, requests[1:1 + half]),
+                           (b, fb, requests[1 + half:]), (a, fa, requests[1 + half:])):
+        for mix, emb in reqs:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(mix, emb)
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    return {name: sorted(t) for name, t in times.items()}
+
+
+def check_export(root, exp_dir, smi):
+    """The serving artifact on the card (phase 17): ``export_serving``'s CLI on
+    the experiment ``fit`` exported (float32, buckets ``EXPORT_BUCKETS``) and
+    on the serving phase's random-weight model (bfloat16, B = 128); each
+    bucket's graph holds ``SRU_LAUNCHES`` K1 and ``DW_LAUNCHES`` K3 op nodes
+    and no other ``rtfs::`` node; each bucket call launches those kernels
+    that often and nothing else. Returns the launch counts of the path's
+    artifact calls (the served requests and ``separate --model
+    model.rtfsx``), counted from 0 just before them."""
+    import numpy as np
+    import torch
+    import yaml
+
+    from rtfs_net_tpu_torch import export, export_serving
+    from rtfs_net_tpu_torch import separate as separate_cli
+    from rtfs_net_tpu_torch.datas import wavio
+    from rtfs_net_tpu_torch.models import build_model, serialization
+
+    want_nodes = {"sru_stack_layer": SRU_LAUNCHES, "dw_conv2d_same": DW_LAUNCHES}
+    per_call = {"K1": SRU_LAUNCHES, "K3": DW_LAUNCHES}
+
+    def exported(ckpt, out, *flags):
+        argv = ["--ckpt", ckpt, "--out", out, "--device", "cuda", *flags]
+        path, seconds = export_serving.main(argv)
+        t0 = time.perf_counter()
+        art = export.load_artifact(path)
+        for b in art.batch_sizes:
+            art.module(b)  # each bucket's program deserialized and placed on the card
+        load_s = time.perf_counter() - t0
+        for b in art.batch_sizes:
+            nodes = export.op_counts(art.program(b))
+            print(f"export {os.path.basename(out)} B={b}: rtfs op nodes {json.dumps(nodes)}")
+            if nodes != want_nodes:
+                fail(f"export B={b}: op nodes {nodes}, want {want_nodes}")
+        if art.header["platforms"] != ["cuda"]:
+            fail(f"export: platforms {art.header['platforms']}")
+        return art, {"export_s": {str(b): s for b, s in seconds.items()},
+                     "artifact_MB": os.path.getsize(path) / 1e6, "load_s": load_s}
+
+    # the experiment's float32 artifact with buckets, against the same weights eagerly
+    best = os.path.join(exp_dir, "best_model.pth")
+    art, fp32 = exported(best, os.path.join(root, "model.rtfsx"), "--batch-sizes",
+                         ",".join(map(str, EXPORT_BUCKETS)), "--dtype", "float32")
+    model, _ = serialization.load_model(best, device="cuda")
+    eager = eager_serving(model, torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    served = [(torch.randn((n, SAMPLES), generator=gen, device="cuda"),
+               0.1 * torch.randn((n, LIP_CHANNELS, LIP_FRAMES), generator=gen, device="cuda"))
+              for n in EXPORT_REQUESTS]
+    # under cuDNN's deterministic algorithms, as fit compares its exported model
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        wants = [eager(mix, emb).cpu().numpy() for mix, emb in served]
+        reset_launch_counts()
+        for (mix, emb), want in zip(served, wants):
+            n = mix.shape[0]
+            calls = bucket_calls(n)
+            got = launches_of(lambda: art(mix, emb),
+                              {k: v * len(calls) for k, v in per_call.items()},
+                              f"artifact B={n}")
+            err, scale = float(np.abs(got - want).max()), float(np.abs(want).max())
+            print(f"export float32 B={n} (bucket calls {calls}) vs eager: max_abs_err {err}, "
+                  f"max|ref| {scale}, tol 1e-5*max|ref| = {1e-5 * scale}")
+            if got.shape != (n, 1, SAMPLES) or not np.isfinite(got).all() or \
+                    not err <= 1e-5 * scale:
+                fail(f"export float32 B={n}: the artifact disagrees with the eager model")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+    # separate --model model.rtfsx: 2 s of the separate phase's wav with its 50 frames
+    wav, sr = wavio.read(os.path.join(root, "long.wav"))
+    frames = np.load(os.path.join(root, "long.npz"))["data"]
+    cut, cut_mouth = os.path.join(root, "cut.wav"), os.path.join(root, "cut.npz")
+    wavio.write(cut, wav[:SAMPLES], sr)
+    np.savez_compressed(cut_mouth, data=frames[:LIP_FRAMES])
+    argv = ["--model", os.path.join(root, "model.rtfsx"), "--mouth", cut_mouth,
+            "--videonet-conf", os.path.join(exp_dir, "conf.yaml"), "--device", "cuda"]
+    t0 = time.perf_counter()
+    (path,) = launches_of(lambda: separate_cli.main(separate_cli.parse_args(
+        argv + ["--input", cut, "--output", os.path.join(root, "separated_rtfsx")])),
+        per_call, "separate --model model.rtfsx")
+    separate_ms = (time.perf_counter() - t0) * 1e3
+    out, _ = wavio.read(path)
+    if out.shape != (SAMPLES,) or not np.isfinite(out).all() or not np.abs(out).max() > 0:
+        fail(f"separate --model model.rtfsx: {path} holds {out.shape}")
+    try:
+        separate_cli.main(separate_cli.parse_args(
+            argv + ["--input", os.path.join(root, "long.wav"), "--output", root]))
+        fail("separate --model model.rtfsx took a 6 s wav without --chunk-seconds")
+    except SystemExit as exc:
+        if "exceeds the artifact's exported segment" not in str(exc):
+            raise
+        print(f"separate --model model.rtfsx refuses the 6 s wav: {exc}")
+    launches = launch_counts()
+    print("main path launches (export): " + json.dumps(launches))
+
+    # ms per call at B=1 float32: eager against the artifact, in turns
+    requests = [(torch.randn((1, SAMPLES), generator=gen, device="cuda"),
+                 0.1 * torch.randn((1, LIP_CHANNELS, LIP_FRAMES), generator=gen,
+                                   device="cuda")) for _ in range(1 + 2 * SERVE_REPS)]
+    b1 = turns_ms({"eager": eager, "artifact": art}, requests)
+    del art, model, eager, requests
+    torch.cuda.empty_cache()
+
+    # bench.py's serving point through an artifact: the serving phase's model
+    with open(CONFIG) as f:
+        conf = yaml.safe_load(f)
+    model = build_model(conf, device="cuda", generator=torch.Generator().manual_seed(0))
+    ckpt = os.path.join(root, "serving", "best_model.pth")
+    serialization.save_model(ckpt, "AVNet", conf["audionet"], model.state_dict())
+    art, bf16 = exported(ckpt, os.path.join(root, "serving", "model.rtfsx"),
+                         "--batch-size", str(BIG_BATCH), "--dtype", "bfloat16")
+    requests = [(torch.randn((BIG_BATCH, SAMPLES), generator=gen, device="cuda"),
+                 0.1 * torch.randn((BIG_BATCH, LIP_CHANNELS, LIP_FRAMES), generator=gen,
+                                   device="cuda")) for _ in range(1 + BENCH_CALLS)]
+    out = launches_of(lambda: art(*requests[0]), per_call, f"artifact B={BIG_BATCH}")
+    if out.shape != (BIG_BATCH, 1, SAMPLES) or not np.isfinite(out).all():
+        fail(f"artifact B={BIG_BATCH} bfloat16: output {out.shape}")
+    torch.cuda.reset_peak_memory_stats()
+    big = turns_ms({"eager": eager_serving(model, torch.bfloat16), "artifact": art},
+                   requests)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    def timing(times):
+        return {"min": times[0], "median": times[len(times) // 2], "calls": len(times)}
+
+    print("export " + json.dumps({
+        "card": smi, "float32_buckets": list(EXPORT_BUCKETS), **{f"float32_{k}": v for k, v in
+                                                                   fp32.items()},
+        **{f"bfloat16_B{BIG_BATCH}_{k}": v for k, v in bf16.items()},
+        "ms_per_call_float32_B1": {k: timing(t) for k, t in b1.items()},
+        f"ms_per_call_bfloat16_B{BIG_BATCH}": {k: timing(t) for k, t in big.items()},
+        f"peak_mem_GiB_B{BIG_BATCH}": peak,
+        "timing": "host clock around synchronised calls, in turns (eager, artifact, "
+                  "artifact, eager) after a warm-up each, distinct inputs; eager is the "
+                  "model call the artifact holds, without separate()'s rescale",
+        "separate_rtfsx_ms": separate_ms,
+        "launches_per_bucket_call": per_call}))
+    return launches
+
+
 def main():
     import tempfile
 
@@ -1752,9 +2033,12 @@ def main():
         torch.cuda.empty_cache()
         eval_launches = check_evaluate(root, exp_dir, smi)
         separate_launches = check_separate_cli(root, exp_dir)
+        torch.cuda.empty_cache()
+        export_launches = check_export(root, exp_dir, smi)
     by_path = {"serving": launches, "serving_from_frames": frame_launches,
                "per_direction": direction_launches, "train": train_launches,
-               "fit": fit_launches, "evaluate": eval_launches, "separate": separate_launches}
+               "fit": fit_launches, "evaluate": eval_launches, "separate": separate_launches,
+               "export": export_launches}
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     # no single PyTorch call computes an SRU recurrence or its backward;

@@ -9,7 +9,9 @@ arguments: x (B, C, T, F); w (C, 1, k_t, k_f); ``pads = ((lo_t, hi_t),
 (torch's "same" for an even kernel is the asymmetric ((k-1)//2, k//2)).
 Taps are summed in float32 from float32 weights; the output has x's dtype
 and no bias. The kernel handles the edges itself, so no padded copy of x
-is made.
+is made. The kernel is the registered op ``rtfs::dw_conv2d_same``
+(``registry.py``), with the pads flat: ``dw_conv2d_same_cuda`` launches it,
+``dw_conv2d_same_ref`` is its CPU implementation.
 
 Gradients as the JAX function's ``custom_vjp`` has them: dx is the same
 stencil on dy with the flipped kernel under pads (k-1-lo, k-1-hi), so it
@@ -25,7 +27,7 @@ from typing import NamedTuple, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from . import build
+from . import build, registry
 
 SOURCE = "dw_conv.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -134,13 +136,15 @@ def _check(x, w, pads: Pads):
 
 
 def _stencil(x, w, pads: Pads):
-    """The forward on checked inputs, outside autograd: the kernel for a
-    CUDA tensor, the plain version for a CPU tensor."""
+    """The forward on checked inputs, outside autograd: the registered op
+    ``rtfs::dw_conv2d_same``, whose pads are the flat (lo_t, hi_t, lo_f,
+    hi_f)."""
+    return torch.ops.rtfs.dw_conv2d_same(x, w, [p for lo_hi in pads for p in lo_hi])
+
+
+def dw_conv2d_same_cuda(x, w, pads: Sequence[int]):
+    """The op's CUDA implementation: one launch of the kernel."""
     global launches
-    if x.device.type == "cpu":
-        return dw_conv2d_same_ref(x, w, pads)
-    if x.device.type != "cuda":
-        raise ValueError(f"dw_conv2d_same runs on cuda or cpu, not {x.device}")
     fn = _fn()
     B, C, T, Fq = x.shape
     k_t, k_f = w.shape[2], w.shape[3]
@@ -150,12 +154,20 @@ def _stencil(x, w, pads: Pads):
     plan = band_plan(T, Fq, k_t, k_f, x.element_size())
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), wf.data_ptr(), y.data_ptr(), B * C, C, T, Fq, k_t, k_f,
-                 pads[0][0], pads[1][0], plan.rows, plan.threads, _DTYPES[x.dtype],
+                 pads[0], pads[2], plan.rows, plan.threads, _DTYPES[x.dtype],
                  torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"dw_conv2d_same kernel launch failed: CUDA error {err}")
     launches += 1
     return y
+
+
+def _dw_conv2d_same_cpu(x, w, pads):
+    return dw_conv2d_same_ref(x, w, ((pads[0], pads[1]), (pads[2], pads[3])))
+
+
+def _dw_conv2d_same_fake(x, w, pads):
+    return x.new_empty(x.shape)
 
 
 def dw_conv2d_same_ref(x, w, pads: Pads):
@@ -202,10 +214,15 @@ class DwConvFunction(torch.autograd.Function):
 
 
 def dw_conv2d_same(x, w, pads: Pads):
-    """CUDA tensors launch the kernel; CPU tensors take the plain version.
+    """CUDA tensors launch the kernel; CPU tensors take the plain version
+    (the dispatcher picks, by the op's registered implementations).
     Under autograd the call goes through ``DwConvFunction``; without, the
     Function is skipped."""
     pads = _check(x, w, pads)
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         return DwConvFunction.apply(x, w, pads)
     return _stencil(x, w, pads)
+
+
+registry.define_op("dw_conv2d_same(Tensor x, Tensor w, int[] pads) -> Tensor",
+                   dw_conv2d_same_cuda, _dw_conv2d_same_cpu, _dw_conv2d_same_fake)

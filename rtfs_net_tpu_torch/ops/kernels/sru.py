@@ -7,6 +7,10 @@ arguments and layout: u (L, k·O, rows) with chunk-major columns
 where u's 4th chunk is the highway); v, b the layer's (2·O,) gate vectors.
 Returns (L, O, rows) in u's dtype; the carry and the math are float32.
 
+The kernel is the registered op ``rtfs::sru_stack_layer``
+(``registry.py``): ``sru_stack_layer_cuda`` launches it,
+``sru_stack_layer_ref`` is its CPU implementation.
+
 ``launch_plan`` picks each launch's ring depth, or the narrow kernel;
 ``sru_direction.py`` plans K4 by the same rule, ``ring_plan``.
 """
@@ -17,7 +21,7 @@ import functools
 
 import torch
 
-from . import build
+from . import build, registry
 
 SOURCE = "sru_stack_layer.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -102,25 +106,29 @@ def _check(u, skip, v, b, H: int, k: int, ndir: int):
 
 
 def sru_stack_layer(u, skip, v, b, *, H: int, k: int, ndir: int):
-    """CUDA tensors launch the kernel; CPU tensors take the plain version.
-    Inference only: it raises when autograd would need its backward (the
-    differentiable layer is ``sru_train.sru_layer_train``)."""
-    global launches
+    """The registered op ``rtfs::sru_stack_layer``: CUDA tensors launch the
+    kernel, CPU tensors take the plain version. Inference only: it raises
+    when autograd would need its backward (the differentiable layer is
+    ``sru_train.sru_layer_train``)."""
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad
                                        for t in (u, skip, v, b)):
         raise RuntimeError("sru_stack_layer has no backward; a grad-enabled call "
                            "goes through sru_train.sru_layer_train")
-    L, O, rows = _check(u, skip, v, b, H, k, ndir)
-    if u.device.type == "cpu":
-        return sru_stack_layer_ref(u, skip, v, b, H=H, k=k, ndir=ndir)
-    if u.device.type != "cuda":
-        raise ValueError(f"sru_stack_layer runs on cuda or cpu, not {u.device}")
+    _check(u, skip, v, b, H, k, ndir)
+    return torch.ops.rtfs.sru_stack_layer(u, skip, v, b, H, k, ndir)
+
+
+def sru_stack_layer_cuda(u, skip, v, b, H: int, k: int, ndir: int):
+    """The op's CUDA implementation: one launch of the kernel."""
+    global launches
     fn = _fn()
-    out = torch.empty((L, O, rows), dtype=u.dtype, device=u.device)
+    L, _, rows = u.shape
+    out = torch.empty((L, H * ndir, rows), dtype=u.dtype, device=u.device)
     v = v.float().contiguous()
     b = b.float().contiguous()
     skip = skip if k == 3 else None
-    depth = launch_plan(rows, O, u.element_size(), _aligned(u, skip), _sms(u.device.index or 0))
+    depth = launch_plan(rows, H * ndir, u.element_size(), _aligned(u, skip),
+                        _sms(u.device.index or 0))
     with torch.cuda.device(u.device):
         err = fn(u.data_ptr(), None if skip is None else skip.data_ptr(),
                  v.data_ptr(), b.data_ptr(), out.data_ptr(),
@@ -130,6 +138,14 @@ def sru_stack_layer(u, skip, v, b, *, H: int, k: int, ndir: int):
         raise RuntimeError(f"sru_stack_layer kernel launch failed: CUDA error {err}")
     launches += 1
     return out
+
+
+def _sru_stack_layer_cpu(u, skip, v, b, H, k, ndir):
+    return sru_stack_layer_ref(u, skip, v, b, H=H, k=k, ndir=ndir)
+
+
+def _sru_stack_layer_fake(u, skip, v, b, H, k, ndir):
+    return u.new_empty((u.shape[0], H * ndir, u.shape[2]))
 
 
 def sru_stack_layer_ref(u, skip, v, b, *, H: int, k: int, ndir: int):
@@ -153,3 +169,8 @@ def sru_stack_layer_ref(u, skip, v, b, *, H: int, k: int, ndir: int):
             c = f * c + (1.0 - f) * u0[t, s]
             out[t, s] = r * c + (1.0 - r) * sk[t, s]
     return out.to(u.dtype)
+
+
+registry.define_op("sru_stack_layer(Tensor u, Tensor? skip, Tensor v, Tensor b, int H, int k, "
+                   "int ndir) -> Tensor", sru_stack_layer_cuda, _sru_stack_layer_cpu,
+                   _sru_stack_layer_fake)

@@ -10,6 +10,10 @@ The operands usually arrive as slices ``u[:, :, c, d*H:(d+1)*H]`` of one
 (L, rows, k, O) projection. The kernel reads them in place through their
 strides along t and rows; only an operand whose stride along h is not 1
 is copied first.
+
+The kernel is the registered op ``rtfs::sru_direction`` (``registry.py``):
+``sru_direction_cuda`` launches it, ``sru_direction_ref`` is its CPU
+implementation.
 """
 from __future__ import annotations
 
@@ -18,7 +22,7 @@ import functools
 
 import torch
 
-from . import build
+from . import build, registry
 from .sru import SMS, THREADS, _sms, ring_plan
 
 SOURCE = "sru_direction.cu"
@@ -69,37 +73,47 @@ def _check(u0, u1, u2, skip, gates):
 
 
 def sru_direction(u0, u1, u2, skip, v_f, v_r, b_f, b_r, reverse: bool = False):
-    """CUDA tensors launch the kernel; CPU tensors take the plain version.
-    Inference only: it raises when autograd would need its backward (the
-    differentiable recurrence is ``sru_train.sru_layer_train``)."""
-    global launches
+    """The registered op ``rtfs::sru_direction``: CUDA tensors launch the
+    kernel, CPU tensors take the plain version. Inference only: it raises
+    when autograd would need its backward (the differentiable recurrence
+    is ``sru_train.sru_layer_train``)."""
     gates = (v_f, v_r, b_f, b_r)
     if torch.is_grad_enabled() and any(t.requires_grad
                                        for t in (u0, u1, u2, skip) + gates):
         raise RuntimeError("sru_direction has no backward; a grad-enabled call "
                            "goes through sru_train.sru_layer_train")
     _check(u0, u1, u2, skip, gates)
-    if u0.device.type == "cpu":
-        return sru_direction_ref(u0, u1, u2, skip, *gates, reverse=reverse)
-    if u0.device.type != "cuda":
-        raise ValueError(f"sru_direction runs on cuda or cpu, not {u0.device}")
+    return torch.ops.rtfs.sru_direction(u0, u1, u2, skip, *gates, bool(reverse))
+
+
+def sru_direction_cuda(u0, u1, u2, skip, v_f, v_r, b_f, b_r, reverse: bool):
+    """The op's CUDA implementation: one launch of the kernel."""
+    global launches
     fn = _fn()
     L, rows, H = u0.shape
     operands = [t if t.stride(2) == 1 else t.contiguous() for t in (u0, u1, u2, skip)]
     strides = (ctypes.c_int64 * 8)(*(s for t in operands for s in t.stride()[:2]))
-    gates = [g.float().contiguous() for g in gates]
+    gates = [g.float().contiguous() for g in (v_f, v_r, b_f, b_r)]
     out = torch.empty((L, rows, H), dtype=u0.dtype, device=u0.device)
     depth = launch_plan(rows, H, u0.element_size(), all(_words_aligned(t) for t in operands),
                         _sms(u0.device.index or 0))
     with torch.cuda.device(u0.device):
         err = fn(*(t.data_ptr() for t in operands), strides,
                  *(g.data_ptr() for g in gates), out.data_ptr(),
-                 L, rows, H, int(bool(reverse)), depth, _DTYPES[u0.dtype],
+                 L, rows, H, int(reverse), depth, _DTYPES[u0.dtype],
                  torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"sru_direction kernel launch failed: CUDA error {err}")
     launches += 1
     return out
+
+
+def _sru_direction_cpu(u0, u1, u2, skip, v_f, v_r, b_f, b_r, reverse):
+    return sru_direction_ref(u0, u1, u2, skip, v_f, v_r, b_f, b_r, reverse=reverse)
+
+
+def _sru_direction_fake(u0, u1, u2, skip, v_f, v_r, b_f, b_r, reverse):
+    return u0.new_empty(u0.shape)
 
 
 def sru_direction_ref(u0, u1, u2, skip, v_f, v_r, b_f, b_r, reverse: bool = False):
@@ -117,3 +131,8 @@ def sru_direction_ref(u0, u1, u2, skip, v_f, v_r, b_f, b_r, reverse: bool = Fals
         c = f * c + (1.0 - f) * u0[t]
         out[t] = r * c + (1.0 - r) * skip[t]
     return out.to(dtype)
+
+
+registry.define_op("sru_direction(Tensor u0, Tensor u1, Tensor u2, Tensor skip, Tensor v_f, "
+                   "Tensor v_r, Tensor b_f, Tensor b_r, bool reverse) -> Tensor",
+                   sru_direction_cuda, _sru_direction_cpu, _sru_direction_fake)

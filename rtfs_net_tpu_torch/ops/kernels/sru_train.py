@@ -9,6 +9,11 @@ chunk-major columns ``c*O + d*H + h``; skip (L, O, rows) when k == 3
 chunk); v, b the layer's (2·O,) gate vectors. One call covers both
 directions. The carry and the math are float32; h, c and the input
 gradients are stored in u's dtype, the gate gradients in float32.
+
+The kernels are the registered ops ``rtfs::sru_train_forward`` and
+``rtfs::sru_train_backward`` (``registry.py``): ``sru_train_forward_cuda``
+and ``sru_train_backward_cuda`` launch them, ``sru_train_forward_ref`` and
+``sru_train_backward_ref`` are their CPU implementations.
 """
 from __future__ import annotations
 
@@ -17,7 +22,7 @@ import functools
 
 import torch
 
-from . import build
+from . import build, registry
 from .sru import SMEM_PER_SM, SMS, THREADS, _aligned, _check, _DTYPES, _sms
 
 SOURCE = "sru_train.cu"
@@ -64,23 +69,36 @@ def _fns():
     return fwd, bwd
 
 
-def _device(u, name):
-    if u.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name} runs on cuda or cpu, not {u.device}")
-    return u.device.type == "cuda"
-
-
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
 def sru_train_forward(u, skip, v, b, *, H: int, k: int, ndir: int):
-    """(h, c), each (L, O, rows) in u's dtype. CUDA tensors launch the
-    kernel; CPU tensors take the plain version."""
-    global forward_launches
+    """(h, c), each (L, O, rows) in u's dtype: the registered op
+    ``rtfs::sru_train_forward``. CUDA tensors launch the kernel; CPU
+    tensors take the plain version."""
+    _check(u, skip, v, b, H, k, ndir)
+    return torch.ops.rtfs.sru_train_forward(u, skip, v, b, H, k, ndir)
+
+
+def sru_train_backward(u, skip, c, v, b, dh, *, H: int, k: int, ndir: int):
+    """(du, dskip, dv, db): du like u, dskip like skip (None when k == 4),
+    dv and db (2·O,) float32: the registered op ``rtfs::sru_train_backward``.
+    CUDA tensors launch the kernel; CPU tensors take the plain version."""
     L, O, rows = _check(u, skip, v, b, H, k, ndir)
-    if not _device(u, "sru_train_forward"):
-        return sru_train_forward_ref(u, skip, v, b, H=H, k=k, ndir=ndir)
+    for name, t in (("c", c), ("dh", dh)):
+        if (tuple(t.shape) != (L, O, rows) or t.dtype != u.dtype or t.device != u.device
+                or not t.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous ({L}, {O}, {rows}) in u's dtype")
+    return tuple(torch.ops.rtfs.sru_train_backward(u, skip, c, v, b, dh, H, k, ndir))
+
+
+def sru_train_forward_cuda(u, skip, v, b, H: int, k: int, ndir: int):
+    """The forward op's CUDA implementation: one launch of the kernel."""
+    global forward_launches
+    fwd = _fns()[0]
+    L, _, rows = u.shape
+    O = H * ndir
     h = torch.empty((L, O, rows), dtype=u.dtype, device=u.device)
     c = torch.empty_like(h)
     v = v.float().contiguous()
@@ -88,44 +106,58 @@ def sru_train_forward(u, skip, v, b, *, H: int, k: int, ndir: int):
     depth = ring_depth(rows, O, u.element_size(), "forward", _aligned(u, skip if k == 3 else None),
                        _sms(u.device.index or 0))
     with torch.cuda.device(u.device):
-        err = _fns()[0](u.data_ptr(), _ptr(skip) if k == 3 else None, v.data_ptr(),
-                        b.data_ptr(), h.data_ptr(), c.data_ptr(),
-                        L, rows, H, k, ndir, depth, _DTYPES[u.dtype],
-                        torch.cuda.current_stream().cuda_stream)
+        err = fwd(u.data_ptr(), _ptr(skip) if k == 3 else None, v.data_ptr(),
+                  b.data_ptr(), h.data_ptr(), c.data_ptr(),
+                  L, rows, H, k, ndir, depth, _DTYPES[u.dtype],
+                  torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"sru_train forward kernel launch failed: CUDA error {err}")
     forward_launches += 1
     return h, c
 
 
-def sru_train_backward(u, skip, c, v, b, dh, *, H: int, k: int, ndir: int):
-    """(du, dskip, dv, db): du like u, dskip like skip (None when k == 4),
-    dv and db (2·O,) float32. CUDA tensors launch the kernel; CPU tensors
-    take the plain version."""
+def sru_train_backward_cuda(u, skip, c, v, b, dh, H: int, k: int, ndir: int):
+    """The backward op's CUDA implementation: one launch of the kernel, then
+    the gate gradients' sums over rows."""
     global backward_launches
-    L, O, rows = _check(u, skip, v, b, H, k, ndir)
-    for name, t in (("c", c), ("dh", dh)):
-        if (tuple(t.shape) != (L, O, rows) or t.dtype != u.dtype or t.device != u.device
-                or not t.is_contiguous()):
-            raise ValueError(f"{name} must be contiguous ({L}, {O}, {rows}) in u's dtype")
-    if not _device(u, "sru_train_backward"):
-        return sru_train_backward_ref(u, skip, c, v, b, dh, H=H, k=k, ndir=ndir)
+    bwd = _fns()[1]
+    L, _, rows = u.shape
+    O = H * ndir
     du = torch.empty_like(u)
     dskip = torch.empty_like(skip) if k == 3 else None
     part = torch.empty((4, O, rows), dtype=torch.float32, device=u.device)
     v = v.float().contiguous()
     b = b.float().contiguous()
-    depth = ring_depth(rows, O, u.element_size(), "backward", _aligned(u, skip if k == 3 else None, c, dh),
-                       _sms(u.device.index or 0))
+    depth = ring_depth(rows, O, u.element_size(), "backward",
+                       _aligned(u, skip if k == 3 else None, c, dh), _sms(u.device.index or 0))
     with torch.cuda.device(u.device):
-        err = _fns()[1](u.data_ptr(), _ptr(skip) if k == 3 else None, c.data_ptr(),
-                        v.data_ptr(), b.data_ptr(), dh.data_ptr(), du.data_ptr(),
-                        _ptr(dskip), part.data_ptr(), L, rows, H, k, ndir, depth,
-                        _DTYPES[u.dtype], torch.cuda.current_stream().cuda_stream)
+        err = bwd(u.data_ptr(), _ptr(skip) if k == 3 else None, c.data_ptr(),
+                  v.data_ptr(), b.data_ptr(), dh.data_ptr(), du.data_ptr(),
+                  _ptr(dskip), part.data_ptr(), L, rows, H, k, ndir, depth,
+                  _DTYPES[u.dtype], torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"sru_train backward kernel launch failed: CUDA error {err}")
     backward_launches += 1
     return (du, dskip) + _gate_grads(part)
+
+
+def _sru_train_forward_cpu(u, skip, v, b, H, k, ndir):
+    return sru_train_forward_ref(u, skip, v, b, H=H, k=k, ndir=ndir)
+
+
+def _sru_train_backward_cpu(u, skip, c, v, b, dh, H, k, ndir):
+    return sru_train_backward_ref(u, skip, c, v, b, dh, H=H, k=k, ndir=ndir)
+
+
+def _sru_train_forward_fake(u, skip, v, b, H, k, ndir):
+    h = u.new_empty((u.shape[0], H * ndir, u.shape[2]))
+    return h, torch.empty_like(h)
+
+
+def _sru_train_backward_fake(u, skip, c, v, b, dh, H, k, ndir):
+    gate = v.new_empty(v.shape, dtype=torch.float32)
+    return (torch.empty_like(u), torch.empty_like(skip) if k == 3 else None,
+            gate, torch.empty_like(gate))
 
 
 def _gate_grads(part):
@@ -230,3 +262,11 @@ def sru_layer_train(u, skip, v, b, *, H: int, k: int, ndir: int):
     inputs."""
     return SRULayerFunction.apply(u.contiguous(), None if skip is None else skip.contiguous(),
                                   v, b, H, k, ndir)
+
+
+registry.define_op("sru_train_forward(Tensor u, Tensor? skip, Tensor v, Tensor b, int H, int k, "
+                   "int ndir) -> (Tensor, Tensor)", sru_train_forward_cuda,
+                   _sru_train_forward_cpu, _sru_train_forward_fake)
+registry.define_op("sru_train_backward(Tensor u, Tensor? skip, Tensor c, Tensor v, Tensor b, "
+                   "Tensor dh, int H, int k, int ndir) -> (Tensor, Tensor?, Tensor, Tensor)",
+                   sru_train_backward_cuda, _sru_train_backward_cpu, _sru_train_backward_fake)

@@ -19,6 +19,14 @@ with the halved overlap-add. With ``--mouth``, the video model embeds the
 whole track once and each chunk takes the embedding's frames of its own
 span (chunks of an even number of 25 fps frames); the JAX CLI chunks
 audio-only models only.
+
+``--model`` also takes a serving artifact (``model.rtfsx`` from ``python -m
+rtfs_net_tpu_torch.export_serving``), as the JAX CLI does: no model zoo or
+config is read for it. Inputs pad to its exported segment; a longer input
+needs ``--chunk-seconds`` equal to that segment. With ``--mouth`` the video
+model still runs eagerly and its embedding, zero-padded to the artifact's
+frames, is the artifact's second input; a mouth input that its calling
+convention does not take, or a longer track, is refused.
 """
 import argparse
 import os
@@ -46,6 +54,17 @@ def _chunk_embedding(emb, n_chunks: int, block: int, sample_rate: int):
     return emb[0].unfold(-1, frames, hop)[:, :n_chunks].permute(1, 0, 2)
 
 
+def _artifact_model(artifact):
+    """The artifact as ``separate()``'s model: (mix, embedding) tensors in,
+    its float32 output as a tensor on the mixture's device."""
+    import torch
+
+    def forward(mix, emb=None):
+        return torch.from_numpy(artifact(mix, emb)).to(mix.device)
+
+    return forward
+
+
 def main(args):
     import torch
 
@@ -57,18 +76,33 @@ def main(args):
     from .utils.features import merge_feature, split_feature
     from .utils.separator import separate
 
-    if args.model.endswith(".rtfsx"):
-        raise SystemExit("serving artifacts (.rtfsx) come with the port of export.py, a "
-                         "later slice; pass a best_model.pth")
     device = resolve_device(args.device)
-    conf = None
-    if args.conf:
-        with open(args.conf) as f:
-            conf = yaml.safe_load(f)
-    model, _ = load_model(args.model, device=device, conf=conf)
-    dtype = torch.bfloat16 if args.bf16 else torch.float32
+    artifact = None
+    if args.model.endswith(".rtfsx"):
+        # a serving artifact: pinned shapes, weights inside; inputs pad to its segment
+        from .export import load_artifact
+
+        artifact = load_artifact(args.model, device=device)
+        model = _artifact_model(artifact)
+        dtype = torch.float32  # the artifact casts to its own compute dtype
+    else:
+        conf = None
+        if args.conf:
+            with open(args.conf) as f:
+                conf = yaml.safe_load(f)
+        model, _ = load_model(args.model, device=device, conf=conf)
+        dtype = torch.bfloat16 if args.bf16 else torch.float32
     wav, sr = wavio.read(args.input)
     L = wav.shape[-1]
+    chunk = args.chunk_seconds or 0
+    if artifact is not None:
+        bucket = int(artifact.header["segment_samples"])
+        if L > bucket and not chunk:
+            raise SystemExit(
+                f"input ({L} samples) exceeds the artifact's exported "
+                f"segment ({bucket}); use --chunk-seconds for long-form")
+    else:
+        bucket = max(1, args.bucket_size)
 
     video = frames = None
     if args.mouth:
@@ -83,24 +117,47 @@ def main(args):
         frames = get_preprocessing_pipelines()["val"](np.load(args.mouth)["data"])
         frames = frames.astype(np.float32)[None, None]  # (1, 1, T_v, 88, 88)
 
-    chunk = args.chunk_seconds or 0
+    emb = None
+    if artifact is not None:
+        mouth_shape = artifact.header.get("mouth_shape")
+        if (video is None) != (mouth_shape is None):
+            raise SystemExit(
+                "artifact calling convention is "
+                f"{artifact.header['calling_convention']!r} but "
+                f"{'no ' if video is None else ''}mouth input was given")
+        if video is not None:
+            # the video model runs eagerly; its embedding is the artifact's input
+            with torch.inference_mode():
+                emb = video(torch.from_numpy(frames).to(device)).float()
+            tv, cur = int(mouth_shape[-1]), emb.shape[-1]
+            if cur > tv:
+                raise SystemExit(f"mouth track ({cur} frames) exceeds the "
+                                 f"artifact's exported {tv}")
+            video = None
+
     if chunk > 0:
         block = int(chunk * sr)
+        if artifact is not None and block != bucket:
+            raise SystemExit(
+                f"--chunk-seconds must match the artifact's exported "
+                f"segment: {bucket / sr:g} s ({bucket} samples)")
         blocks, rest = split_feature(torch.from_numpy(wav)[None, None], block)
         batch = blocks[0, 0].t().contiguous()  # (n_chunks, block)
         third = None
         if video is not None:
             with torch.inference_mode():
                 emb = video(torch.from_numpy(frames).to(device, dtype)).float()
-                third = _chunk_embedding(emb, batch.shape[0], block, sr)
+        if emb is not None:
+            third = _chunk_embedding(emb, batch.shape[0], block, sr)
         est = separate(model, batch, third, device=device, dtype=dtype)
         est = merge_feature(est.permute(1, 2, 0)[None], rest) * 0.5
         est = est[0, :, :L].cpu().numpy()
     else:
-        bucket = max(1, args.bucket_size)
         mix = np.pad(wav, (0, -(-L // bucket) * bucket - L))[None]
-        est = separate(model, mix, frames, video_model=video, device=device,
-                       dtype=dtype)[0][:, :L]
+        if emb is not None:  # pad the track to the artifact's frames
+            emb = torch.nn.functional.pad(emb, (0, int(mouth_shape[-1]) - emb.shape[-1]))
+        est = separate(model, mix, frames if video is not None else emb, video_model=video,
+                       device=device, dtype=dtype)[0][:, :L]
 
     out_dir = args.output or os.path.dirname(os.path.abspath(args.input))
     os.makedirs(out_dir, exist_ok=True)
@@ -115,7 +172,8 @@ def main(args):
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser()
-    p.add_argument("--model", required=True, help="best_model.pth path")
+    p.add_argument("--model", required=True,
+                   help="best_model.pth path, or a .rtfsx serving artifact")
     p.add_argument("--conf", default=None,
                    help="config YAML whose audionet section holds the constructor "
                         "arguments, for a reference best_model.pth or Lightning "
@@ -129,7 +187,8 @@ def parse_args(argv=None):
     p.add_argument("--chunk-seconds", type=float, default=0,
                    help="long-form mode: separate 50%%-overlap chunks of this length "
                         "as one batch and overlap-add")
-    p.add_argument("--bf16", action="store_true", help="serving precision")
+    p.add_argument("--bf16", action="store_true",
+                   help="serving precision (an artifact carries its own)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return p.parse_args(argv)
 

@@ -13,7 +13,8 @@ port's weights (perturbed) carried into JAX by ``convert_avnet``:
   (batches of 1) within 1e-4 dB;
 * ``separate`` plain and chunked against the root ``separate.py``'s JAX
   path, within 5e-4·max|ref| (the outputs are 16-bit wavs: one step is
-  3e-5);
+  3e-5); ``separate`` with a serving artifact (``.rtfsx``) against the
+  eager CLI, and its refusals;
 * ``load_model`` on a Lightning-style checkpoint (``audio_model.`` keys,
   hyper-parameters that ``weights_only=True`` refuses) and on a reference
   blob whose ``model_args`` is ``get_config()``-shaped, each equal to a
@@ -46,6 +47,7 @@ from rtfs_net_tpu.utils.avnet_convert import convert_avnet
 from rtfs_net_tpu_torch import import_checkpoint, local_test, separate as psep, test as ptest
 from rtfs_net_tpu_torch.datas import get_preprocessing_pipelines, wavio
 from rtfs_net_tpu_torch.evaluation import normalize_mouths, run_batched_eval
+from rtfs_net_tpu_torch.export import export_serving, save_serving
 from rtfs_net_tpu_torch.losses import PITLossWrapper, pairwise_neg_sisdr
 from rtfs_net_tpu_torch.metrics import ALLMetricsTracker
 from rtfs_net_tpu_torch.models import build_model, build_video_model, serialization
@@ -251,9 +253,68 @@ def test_chunk_embedding_takes_each_chunks_frames():
         psep._chunk_embedding(emb, 6, 1920, SR)
 
 
-def test_separate_cli_refuses_an_artifact():
-    with pytest.raises(SystemExit, match="export.py"):
-        psep.main(psep.parse_args(["--model", "model.rtfsx", "--input", "x.wav"]))
+@pytest.fixture(scope="module")
+def artifact(audio_only):
+    """The audio-only model's float32 serving artifact: B = 4, a 0.25 s
+    segment (4000 samples), traced on the CPU."""
+    conf, model, d = audio_only
+    program = export_serving(model, 4, 4000, compute_dtype=torch.float32, device="cpu")
+    path = str(d / "model.rtfsx")
+    save_serving(path, program, 4, 4000, compute_dtype="float32")
+    return path
+
+
+def _separate(model, wav, out, *extra):
+    return psep.main(psep.parse_args(["--model", str(model), "--input", str(wav), "--output",
+                                      str(out), "--device", "cpu", *extra]))
+
+
+def test_separate_cli_serves_an_artifact(audio_only, artifact):
+    """``--model model.rtfsx``: a 3000-sample wav padded to the segment, and
+    the 9100-sample one in chunks of the segment (5 chunks: a call of the B=4
+    program and a padded one), each as the eager CLI separates it from the
+    same weights with the same padding and chunks (16-bit wavs: 1.5 steps)."""
+    _, _, d = audio_only
+    wav, _ = wavio.read(str(d / "long.wav"))
+    wavio.write(str(d / "short.wav"), wav[:3000], SR)
+    for name, extra in (("short", ["--bucket-size", "4000"]), ("long", ["--chunk-seconds", "0.25"])):
+        (got,) = _separate(artifact, d / f"{name}.wav", d / f"art_{name}", *extra)
+        (want,) = _separate(d / "best_model.pth", d / f"{name}.wav", d / f"eager_{name}", *extra)
+        got, sr = wavio.read(got)
+        want, _ = wavio.read(want)
+        assert sr == SR and got.shape == want.shape == ({"short": 3000, "long": 9100}[name],)
+        assert np.abs(got).max() > 0
+        np.testing.assert_allclose(got, want, atol=1.5 / 32768)
+
+
+def test_separate_cli_refuses_an_artifact(audio_only, artifact):
+    """An input longer than the artifact's segment needs ``--chunk-seconds``."""
+    _, _, d = audio_only
+    with pytest.raises(SystemExit, match="exceeds the artifact's exported segment"):
+        _separate(artifact, d / "long.wav", d / "refused")
+
+
+def test_separate_cli_refuses_an_artifact_convention_mismatch(audio_only, artifact, tmp_path):
+    """A mouth track for an artifact exported without the mouth input."""
+    _, _, d = audio_only
+    with open(os.path.join(ROOT, "rtfs_net_tpu_torch", "configs",
+                           "lrs2_RTFSNet_4_layer.yaml")) as f:
+        videonet = {**yaml.safe_load(f)["videonet"], "pretrain": ""}
+    with open(tmp_path / "conf.yaml", "w") as f:
+        yaml.safe_dump({"videonet": videonet}, f)
+    np.savez(tmp_path / "mouth.npz", data=np.zeros((6, 96, 96), np.uint8))
+    wav, _ = wavio.read(str(d / "long.wav"))
+    wavio.write(str(tmp_path / "short.wav"), wav[:3000], SR)
+    with pytest.raises(SystemExit, match="calling convention .* but mouth input was given"):
+        _separate(artifact, tmp_path / "short.wav", tmp_path, "--mouth",
+                  str(tmp_path / "mouth.npz"), "--videonet-conf", str(tmp_path / "conf.yaml"))
+
+
+def test_separate_cli_refuses_an_artifact_chunk_mismatch(audio_only, artifact):
+    """``--chunk-seconds`` other than the artifact's segment."""
+    _, _, d = audio_only
+    with pytest.raises(SystemExit, match="must match the artifact's exported segment: 0.25 s"):
+        _separate(artifact, d / "long.wav", d / "refused", "--chunk-seconds", "0.5")
 
 
 # ---------------------------------------------- checkpoints and test.py

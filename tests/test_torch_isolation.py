@@ -1,8 +1,8 @@
 """The PyTorch port stands alone: nothing under ``rtfs_net_tpu_torch/``,
 nothing in ``chip_smoke.py`` or the port's kernel scripts imports JAX, Flax
-or the JAX package; and a
-kernel wrapper given a CUDA tensor launches its kernel or raises, never
-runs its plain version instead."""
+or the JAX package; and each
+kernel's registered CUDA implementation launches its kernel or raises,
+never runs its plain version instead."""
 import ast
 import pathlib
 
@@ -13,6 +13,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "rtfs_net_tpu")
 PORT = sorted((ROOT / "rtfs_net_tpu_torch").rglob("*.py"))
 FILES = PORT + [ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_kernel_ab.py",
+                ROOT / "scripts" / "torch_serving_ab.py",
                 ROOT / "scripts" / "torch_sru_plans.py"]
 
 
@@ -45,7 +46,8 @@ def test_new_modules_are_covered():
             "models/serialization.py", "train.py", "_native.py", "metrics/__init__.py",
             "metrics/stoi.py", "metrics/pesq.py", "metrics/allwrapper.py", "utils/features.py",
             "utils/flops.py", "utils/profiling.py", "evaluation.py", "test.py", "separate.py",
-            "local_test.py", "import_checkpoint.py"} <= names
+            "local_test.py", "import_checkpoint.py", "export.py", "export_serving.py",
+            "ops/kernels/registry.py"} <= names
 
 
 def test_loader_workers_import_no_torch():
@@ -77,32 +79,59 @@ def _on_card(*shape):
 
 
 def _dw_conv_call(module):
-    return module.dw_conv2d_same(_on_card(2, 3, 8, 8), _on_card(3, 1, 3, 3), ((1, 1), (1, 1)))
+    return module.dw_conv2d_same_cuda(_on_card(2, 3, 8, 8), _on_card(3, 1, 3, 3), [1, 1, 1, 1])
 
 
 def _sru_stack_layer_call(module):
-    return module.sru_stack_layer(_on_card(5, 3 * 8, 4), _on_card(5, 8, 4), _on_card(16),
-                                  _on_card(16), H=4, k=3, ndir=2)
+    return module.sru_stack_layer_cuda(_on_card(5, 3 * 8, 4), _on_card(5, 8, 4), _on_card(16),
+                                       _on_card(16), 4, 3, 2)
 
 
 def _sru_direction_call(module):
-    return module.sru_direction(*(_on_card(5, 4, 8) for _ in range(4)),
-                                *(_on_card(8) for _ in range(4)))
+    return module.sru_direction_cuda(*(_on_card(5, 4, 8) for _ in range(4)),
+                                     *(_on_card(8) for _ in range(4)), False)
+
+
+def _sru_train_forward_call(module):
+    return module.sru_train_forward_cuda(_on_card(5, 3 * 8, 4), _on_card(5, 8, 4), _on_card(16),
+                                         _on_card(16), 4, 3, 2)
+
+
+def _sru_train_backward_call(module):
+    return module.sru_train_backward_cuda(_on_card(5, 3 * 8, 4), _on_card(5, 8, 4),
+                                          _on_card(5, 8, 4), _on_card(16), _on_card(16),
+                                          _on_card(5, 8, 4), 4, 3, 2)
+
+
+# the plain version -> (its op, the CUDA implementation's launch count, its build cache)
+OPS = {"dw_conv2d_same_ref": ("dw_conv2d_same", "launches", "_fn"),
+       "sru_direction_ref": ("sru_direction", "launches", "_fn"),
+       "sru_stack_layer_ref": ("sru_stack_layer", "launches", "_fn"),
+       "sru_train_forward_ref": ("sru_train_forward", "forward_launches", "_fns"),
+       "sru_train_backward_ref": ("sru_train_backward", "backward_launches", "_fns")}
 
 
 @pytest.mark.parametrize("name,plain,call", [
     ("dw_conv", "dw_conv2d_same_ref", _dw_conv_call),
     ("sru_direction", "sru_direction_ref", _sru_direction_call),
     ("sru", "sru_stack_layer_ref", _sru_stack_layer_call),
+    ("sru_train", "sru_train_forward_ref", _sru_train_forward_call),
+    ("sru_train", "sru_train_backward_ref", _sru_train_backward_call),
 ])
 def test_wrapper_raises_without_a_build(monkeypatch, tmp_path, name, plain, call):
-    """No ``nvcc``: the wrapper's build fails and the call raises; the
-    plain version is not taken in its place."""
+    """Each op has a CUDA implementation registered, and that
+    implementation, given tensors on a card and no ``nvcc``, fails to build
+    its kernel and raises: the plain version is not taken in its place and
+    no launch is counted. (The dispatcher sends a CPU tensor, which
+    ``_OnCard`` is underneath, to the CPU implementation, so the CUDA one is
+    called directly.)"""
     import importlib
 
     from rtfs_net_tpu_torch.ops.kernels import build
 
     module = importlib.import_module(f"rtfs_net_tpu_torch.ops.kernels.{name}")
+    op, counter, cache = OPS[plain]
+    assert torch._C._dispatch_has_kernel_for_dispatch_key(f"rtfs::{op}", "CUDA")
 
     def no_fallback(*args, **kwargs):
         raise AssertionError(f"{plain} ran for a CUDA tensor")
@@ -114,9 +143,9 @@ def test_wrapper_raises_without_a_build(monkeypatch, tmp_path, name, plain, call
     monkeypatch.setattr(build, "nvcc", no_nvcc)
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(build, "_libs", {})
-    module._fn.cache_clear()
-    before = module.launches
+    getattr(module, cache).cache_clear()
+    before = getattr(module, counter)
     with pytest.raises(RuntimeError, match="nvcc not found"), torch.no_grad():
         call(module)
-    assert module.launches == before
-    module._fn.cache_clear()
+    assert getattr(module, counter) == before
+    getattr(module, cache).cache_clear()
