@@ -129,7 +129,28 @@ Phases (any failure exits non-zero before the final line):
    beside the eager model in turns; an ``export`` line: export seconds per
    bucket, artifact MB, load seconds, ms per call eager and artifact at
    B=1 float32 and B=128 bfloat16, launches, peak memory.
-18. a ``{"kernels": [...]}`` line (with each kernel's launches on every
+18. ctcnet: CTCNet-16 (``configs/lrs2_CTCNet_16_layer.yaml``, the paper's
+   time-domain baseline: Conv1d encoder, 16 repeats of one weight-shared
+   FRCNN block, a BatchNorm1d video FRCNN, ConcatFusion, ConvTranspose1d
+   decoder) at full width, random weights from seed 0. It runs none of
+   K1-K4 (no SRU; its depthwise convs are 1-D), and every call below
+   launches none of them. ``separate()`` from (B, 512, 50) embeddings at
+   B = 1, 4, 16 and from (4, 1, 50, 88, 88) frames through the video model,
+   float32 and bfloat16; B=1 float32 against the same model on the CPU
+   within 5e-4·max|ref|; ms per forward (median of 7). ``System.train_step``
+   at B = 4 in both dtypes: finite loss and grad norm, the video FRCNN's
+   BatchNorm statistics moved; ms per step; a float32 B=1 step against the
+   CPU (phase 12's tolerances). ``train.main`` with the CTCNet YAML for one
+   epoch on ``fit``'s manifest (batch 4, float32); its ``best_model.pth``
+   reloaded with ``load_model`` and exported by ``export_serving`` at B=1
+   float32 (no ``rtfs::`` node), one call within 1e-5·max|ref| of eager
+   under cuDNN's deterministic algorithms. ``test.main`` on that
+   experiment over the evaluate phase's manifest (finite metrics) and the
+   ``separate`` CLI on phase 16's 6 s wav. MACs of a 2 s forward within 5%
+   of the paper's 167.2 G; a ``profile`` line of a B=16 bfloat16 forward; a
+   ``ctcnet`` line (ms per forward and per utterance, ms per step, peak
+   memory, MACs, parameters, device busy and idle share, the card).
+19. a ``{"kernels": [...]}`` line (with each kernel's launches on every
    path), then ``{"ok": true, "device": {...}}`` last.
 
 Every comparison on the card runs with TF32 off (cuDNN convolutions and
@@ -150,6 +171,8 @@ import traceback
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(HERE, "rtfs_net_tpu_torch", "configs", "lrs2_RTFSNet_4_layer.yaml")
+CTCNET_CONFIG = os.path.join(HERE, "rtfs_net_tpu_torch", "configs",
+                             "lrs2_CTCNet_16_layer.yaml")
 
 # H100 SXM peaks (NVIDIA data sheet): HBM rate and float32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -189,6 +212,9 @@ SEPARATE_SECONDS, SEPARATE_CHUNK = 6, 2
 # the export phase: the bucketed float32 artifact's batch sizes and the
 # request batches served through it (3 padded to 4, 5 in chunks of 4 and 1)
 EXPORT_BUCKETS, EXPORT_REQUESTS = (1, 4), (1, 3, 4, 5)
+# the ctcnet phase: the paper's MACs per 2 s forward (tests/test_macs_paper.py),
+# the train batch and timed steps per dtype, the batch served from frames
+CTCNET_PAPER_GMACS, CTCNET_TRAIN_BATCH, CTCNET_TRAIN_STEPS, CTCNET_FRAMES_BATCH = 167.2, 4, 3, 4
 CHANNELS = 64  # TDANet hid_chan: the depthwise convs' channels
 DW_PLANES = {(251, 129): 3, (125, 64): 7}  # K3 launches per TDANet block, by (T, F)
 DW_KERNEL, DW_PADS = (4, 4), ((1, 2), (1, 2))
@@ -940,7 +966,7 @@ def category(name):
 
 def profile_line(label, fn, iters, launched):
     """``torch.profiler`` over ``iters`` calls of ``fn`` (after one warm-up
-    call); prints one ``profile`` line. Device busy time is the sum of
+    call); prints one ``profile`` line and returns its numbers. Device busy time is the sum of
     kernel times (the port runs on one stream). Fails unless each category
     in ``launched``, the kernels ``fn`` launches, shows device time: a
     renamed kernel would otherwise fall silently into another category."""
@@ -967,16 +993,16 @@ def profile_line(label, fn, iters, launched):
     by_cat = collections.Counter()
     for name, ms in kernels.items():
         by_cat[category(name)] += ms
-    print("profile " + json.dumps({
-        **label, "wall_ms": wall_ms,
-        "device_busy_ms": busy, "idle_share": 1.0 - busy / wall_ms,
-        "kernel_launches": n_launches / iters,
-        "by_category_ms": dict(by_cat.most_common()),
-        "top_kernels_ms": [[n[:80], ms] for n, ms in kernels.most_common(PROFILE_TOP)],
-    }))
+    stats = {**label, "wall_ms": wall_ms,
+             "device_busy_ms": busy, "idle_share": 1.0 - busy / wall_ms,
+             "kernel_launches": n_launches / iters,
+             "by_category_ms": dict(by_cat.most_common()),
+             "top_kernels_ms": [[n[:80], ms] for n, ms in kernels.most_common(PROFILE_TOP)]}
+    print("profile " + json.dumps(stats))
     missing = [cat for cat in launched if not by_cat.get(cat, 0.0) > 0.0]
     if missing:
         fail(f"profile {label}: no device time in {missing}, whose kernels it launched")
+    return stats
 
 
 def profile_serving(model, video, requests, frame_requests):
@@ -1180,7 +1206,8 @@ def rtfs4_conf(dropout=None):
     return conf
 
 
-def make_system(model, dtype):
+def make_system(model, dtype, config=None):
+    """``System`` with the optimizer of ``config`` (default: RTFS-Net-4's)."""
     import torch
 
     from rtfs_net_tpu_torch.losses import PITLossWrapper, pairwise_neg_sisdr, pairwise_neg_snr
@@ -1188,7 +1215,7 @@ def make_system(model, dtype):
 
     import yaml
 
-    with open(CONFIG) as f:
+    with open(config or CONFIG) as f:
         optim = yaml.safe_load(f)["optim"]
     return System(model, make_optimizer(model.parameters(), **optim),
                   {"train": PITLossWrapper(pairwise_neg_snr),
@@ -1257,18 +1284,20 @@ def check_training():
     return base, launches
 
 
-def check_train_parity():
-    """One float32 B=1 step, dropout off: the card against the CPU."""
+def check_train_parity(conf=None, config=None, label="train"):
+    """One float32 B=1 step, dropout off: the card against the CPU. ``conf``
+    is the model's (default: RTFS-Net-4's, dropout off), ``config`` its
+    YAML for the optimizer."""
     import torch
 
     from rtfs_net_tpu_torch.models import build_model
 
-    cpu_model = build_model(rtfs4_conf(dropout=0.0), device="cpu",
+    cpu_model = build_model(conf or rtfs4_conf(dropout=0.0), device="cpu",
                             generator=torch.Generator().manual_seed(0))
     gpu_model = copy.deepcopy(cpu_model).cuda()
     batch = train_batch(1, torch.Generator(device="cuda").manual_seed(5))
-    loss_gpu = float(make_system(gpu_model, torch.float32).backward(batch))
-    loss_cpu = float(make_system(cpu_model, torch.float32).backward(
+    loss_gpu = float(make_system(gpu_model, torch.float32, config).backward(batch))
+    loss_cpu = float(make_system(cpu_model, torch.float32, config).backward(
         tuple(t.cpu() for t in batch)))
     grads = {n: p.grad for n, p in cpu_model.named_parameters()}
     scale = max(float(g.abs().max()) for g in grads.values())
@@ -1277,14 +1306,14 @@ def check_train_parity():
         err = float((p.grad.cpu() - grads[n]).abs().max())
         if err > worst:
             worst, worst_name = err, n
-    print("train B=1 float32 vs CPU: " + json.dumps({
+    print(f"{label} B=1 float32 vs CPU: " + json.dumps({
         "loss_gpu": loss_gpu, "loss_cpu": loss_cpu, "loss_tol": 1e-4 * abs(loss_cpu),
         "grad_max_abs_err": worst, "worst_param": worst_name, "max_abs_grad": scale,
         "grad_tol": 1e-3 * scale}))
     if not abs(loss_gpu - loss_cpu) <= 1e-4 * abs(loss_cpu):
-        fail("B=1 float32 train loss disagrees with the CPU")
+        fail(f"{label}: B=1 float32 train loss disagrees with the CPU")
     if not worst <= 1e-3 * scale:
-        fail(f"B=1 float32 gradient of {worst_name} disagrees with the CPU")
+        fail(f"{label}: B=1 float32 gradient of {worst_name} disagrees with the CPU")
 
 
 def profile_training(base):
@@ -1384,9 +1413,13 @@ class FitWatch:
 
         System.train_step, System.val_step = self.original
 
-    def check_launches(self, what):
-        want_step = {"K2_forward": 64, "K2_backward": 32, "K3": 3 * DW_LAUNCHES}
-        want_val = {"K1": 32, "K3": DW_LAUNCHES}
+    def check_launches(self, what, want_step=None, want_val=None):
+        """Fail unless every train step and validation batch launched each
+        kernel as often as wanted (default: RTFS-Net-4's counts)."""
+        if want_step is None:
+            want_step = {"K2_forward": 64, "K2_backward": 32, "K3": 3 * DW_LAUNCHES}
+        if want_val is None:
+            want_val = {"K1": 32, "K3": DW_LAUNCHES}
         for calls, want, kind in ((self.steps, want_step, "train step"),
                                   (self.vals, want_val, "validation batch")):
             if not calls:
@@ -1975,6 +2008,211 @@ def check_export(root, exp_dir, smi):
     return launches
 
 
+def check_ctcnet(root, smi):
+    """CTCNet-16 (``CTCNET_CONFIG``, the paper's baseline) at full width with
+    random weights from seed 0 (phase 18), in the directory ``root`` that
+    holds the ``fit``, ``evaluate`` and ``separate`` phases' data. It runs
+    none of K1-K4: every call
+    below launches none of them, and the phase fails otherwise. Returns the
+    path's launch counts, counted from 0 just before it."""
+    import numpy as np
+    import torch
+    import yaml
+
+    from rtfs_net_tpu_torch import export, export_serving
+    from rtfs_net_tpu_torch import separate as separate_cli
+    from rtfs_net_tpu_torch import test as evaluate_cli
+    from rtfs_net_tpu_torch import train
+    from rtfs_net_tpu_torch.datas import wavio
+    from rtfs_net_tpu_torch.models import build_model, build_video_model, serialization
+    from rtfs_net_tpu_torch.utils.flops import conv_dot_macs, count_params
+    from rtfs_net_tpu_torch.utils.separator import separate
+
+    with open(CTCNET_CONFIG) as f:
+        conf = yaml.safe_load(f)
+    model = build_model(conf, device="cuda", generator=torch.Generator().manual_seed(0))
+    video = build_video_model(conf, device="cuda", generator=torch.Generator().manual_seed(0))
+    emb_chan = conf["audionet"]["pretrained_vout_chan"]
+    gen = torch.Generator(device="cuda").manual_seed(13)
+
+    def request(B):
+        return (torch.randn((B, SAMPLES), generator=gen, device="cuda"),
+                0.1 * torch.randn((B, emb_chan, LIP_FRAMES), generator=gen, device="cuda"))
+
+    requests = {B: request(B) for B in SERVE_BATCHES}
+    frames = (torch.randn((CTCNET_FRAMES_BATCH, SAMPLES), generator=gen, device="cuda"),
+              torch.randn((CTCNET_FRAMES_BATCH, 1, VIDEO_FRAMES, MOUTH_SIZE, MOUTH_SIZE),
+                          generator=gen, device="cuda"))
+    dtypes = (torch.float32, torch.bfloat16)
+    calls = {(B, dtype): (lambda mix=mix, third=third, dtype=dtype:
+                          separate(model, mix, third, dtype=dtype))
+             for B, (mix, third) in requests.items() for dtype in dtypes}
+    calls.update({("frames", dtype): (lambda dtype=dtype: separate(
+        model, *frames, video_model=video, dtype=dtype)) for dtype in dtypes})
+
+    # serving: each call once, counted (no kernel may launch), then B=1 against the CPU
+    reset_launch_counts()
+    outs = {key: launches_of(fn, {}, f"ctcnet {key}") for key, fn in calls.items()}
+    for key, out in outs.items():
+        B = frames[0].shape[0] if key[0] == "frames" else key[0]
+        if tuple(out.shape) != (B, 1, SAMPLES) or not bool(torch.isfinite(out).all()):
+            fail(f"ctcnet {key}: output {tuple(out.shape)}, "
+                 f"finite={bool(torch.isfinite(out).all())}")
+    mix, emb = requests[1]
+    ref = separate(copy.deepcopy(model).cpu(), mix.cpu(), emb.cpu(), device="cpu")
+    err = float((outs[(1, torch.float32)].cpu() - ref).abs().max())
+    scale = float(ref.abs().max())
+    print(f"ctcnet B=1 float32 vs CPU: max_abs_err {err}, max|ref| {scale}, "
+          f"tol 5e-4*max|ref| = {5e-4 * scale}")
+    if not err <= 5e-4 * scale:
+        fail("ctcnet: B=1 float32 output disagrees with the CPU forward")
+    del outs, ref
+    serving = {}
+    for key, fn in calls.items():
+        torch.cuda.reset_peak_memory_stats()
+        times = host_ms(fn, SERVE_REPS)
+        B = frames[0].shape[0] if key[0] == "frames" else key[0]
+        serving[f"{key[0]}_{dtype_name(key[1])}"] = {
+            "ms_per_forward_median": times[len(times) // 2], "ms_per_forward_min": times[0],
+            "ms_per_utt_median": times[len(times) // 2] / B,
+            "peak_mem_GiB": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+    # training: a counted step per dtype (the video FRCNN's BatchNorm statistics
+    # must move), then timed steps; one float32 B=1 step against the CPU
+    mix, emb = request(CTCNET_TRAIN_BATCH)
+    batch = (mix, mix[:, None], emb)
+    training = {}
+    for dtype in dtypes:
+        system = make_system(copy.deepcopy(model), dtype, CTCNET_CONFIG)
+        stats = {n: b.clone() for n, b in system.model.named_buffers()
+                 if n.endswith(("running_mean", "running_var"))}
+
+        def step():
+            out = system.train_step(batch, generator=torch.Generator(device="cuda").manual_seed(4))
+            loss, gnorm = float(out["loss"]), float(out["grad_norm"])
+            if not (math.isfinite(loss) and math.isfinite(gnorm)):
+                fail(f"ctcnet train {dtype}: loss {loss}, grad_norm {gnorm}")
+            return loss, gnorm
+
+        torch.cuda.reset_peak_memory_stats()
+        loss, gnorm = launches_of(step, {}, f"ctcnet train {dtype}")
+        buffers = dict(system.model.named_buffers())
+        still = [n for n, b in stats.items() if torch.equal(b, buffers[n])]
+        if not stats or still:
+            fail(f"ctcnet train {dtype}: BatchNorm statistics unmoved: {still or 'none'}")
+        times = host_ms(step, CTCNET_TRAIN_STEPS)
+        training[dtype_name(dtype)] = {
+            "B": CTCNET_TRAIN_BATCH, "ms_per_step_median": times[len(times) // 2],
+            "ms_per_step_min": times[0], "loss": loss, "grad_norm": gnorm,
+            "batchnorm_buffers_moved": len(stats),
+            "peak_mem_GiB": torch.cuda.max_memory_allocated() / 2 ** 30}
+        del system
+    torch.cuda.empty_cache()
+    check_train_parity(conf["audionet"], CTCNET_CONFIG, "ctcnet train")
+
+    # the training entry point for one epoch on the fit phase's manifest; its
+    # best_model.pth reloaded and exported, one artifact call against eager
+    argv = ["--conf-dir", CTCNET_CONFIG, "--train_dir", os.path.join(root, "tr"),
+            "--valid_dir", os.path.join(root, "cv"), "--path", os.path.join(root, "ctcnet"),
+            "--batch_size", str(FIT_BATCH), "--num_workers", str(FIT_WORKERS),
+            "--device", "cuda", "--pretrain", "", "--epochs", "1"]
+    fit_conf = train.parse_conf(argv)
+    torch.cuda.reset_peak_memory_stats()
+    with FitWatch() as watch:
+        trainer = train.main(fit_conf)
+    watch.check_launches("ctcnet fit", want_step={}, want_val={})
+    history = trainer.history
+    if len(history) != 1 or not (math.isfinite(history[0]["train_loss"])
+                                 and math.isfinite(history[0]["val_loss"])):
+        fail(f"ctcnet fit: history {history}")
+    step_ms = sorted(watch.ms(watch.steps))
+    fit = {"B": FIT_BATCH, "dtype": "float32", "epoch_wall_s": history[0]["wall_s"],
+           "ms_per_train_step_median": step_ms[len(step_ms) // 2],
+           "train_loss": history[0]["train_loss"], "val_loss": history[0]["val_loss"],
+           "peak_mem_GiB": torch.cuda.max_memory_allocated() / 2 ** 30}
+    del trainer, watch
+    best = os.path.join(fit_conf["log"]["path"], fit_conf["log"]["exp_name"], "best_model.pth")
+    loaded, _ = serialization.load_model(best, device="cuda")
+    path, seconds = export_serving.main(["--ckpt", best, "--out",
+                                         os.path.join(root, "ctcnet.rtfsx"), "--device", "cuda",
+                                         "--batch-size", "1", "--dtype", "float32"])
+    art = export.load_artifact(path)
+    nodes = export.op_counts(art.program(1))
+    if nodes:
+        fail(f"ctcnet export: rtfs op nodes {nodes}, want none")
+    mix, emb = request(1)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        want = eager_serving(loaded, torch.float32)(mix, emb).cpu().numpy()
+        got = launches_of(lambda: art(mix, emb), {}, "ctcnet artifact B=1")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    err, scale = float(np.abs(got - want).max()), float(np.abs(want).max())
+    print(f"ctcnet export float32 B=1 vs eager: max_abs_err {err}, max|ref| {scale}, "
+          f"tol 1e-5*max|ref| = {1e-5 * scale}")
+    if got.shape != (1, 1, SAMPLES) or not np.isfinite(got).all() or not err <= 1e-5 * scale:
+        fail("ctcnet export: the artifact disagrees with the eager model")
+    exported = {"export_s": seconds, "artifact_MB": os.path.getsize(path) / 1e6,
+                "max_abs_err": err}
+    del art, loaded
+
+    # the evaluation and separation entry points on that experiment: the
+    # evaluate phase's test manifest, and the separate phase's 6 s wav
+    exp_dir = os.path.dirname(best)
+    eval_conf = evaluate_cli.parse_conf(["--conf-dir", os.path.join(exp_dir, "conf.yaml"),
+                                         "--test-dir", os.path.join(root, "tt"),
+                                         "--device", "cuda"])
+    evaluated = launches_of(lambda: evaluate_cli.main(eval_conf), {}, "ctcnet test.main")
+    rows, _ = metric_rows(os.path.join(evaluated["save_dir"], "metrics.csv"))
+    if len(rows) != EVAL_ITEMS + 2 or not all(
+            math.isfinite(float(r[col])) for r in rows[:-2]
+            for col in ("si-snr", "sdr", "stoi", "pesq")):
+        fail(f"ctcnet test.main: metrics.csv has {len(rows)} rows, or a non-finite one")
+    argv = ["--model", best, "--input", os.path.join(root, "long.wav"),
+            "--mouth", os.path.join(root, "long.npz"),
+            "--videonet-conf", os.path.join(exp_dir, "conf.yaml"),
+            "--output", os.path.join(root, "ctcnet_separated"), "--device", "cuda"]
+    t0 = time.perf_counter()
+    (path,) = launches_of(lambda: separate_cli.main(separate_cli.parse_args(argv)), {},
+                          "ctcnet separate")
+    separate_ms = (time.perf_counter() - t0) * 1e3
+    out, _ = wavio.read(path)
+    if out.shape != (SEPARATE_SECONDS * 16000,) or not np.isfinite(out).all():
+        fail(f"ctcnet separate: {path} holds {out.shape}")
+    stats = evaluated["eval"]
+    entry_points = {"test_utt_per_s": stats["utterances"] / stats["wall_s"],
+                    "test_items": EVAL_ITEMS, f"separate_{SEPARATE_SECONDS}s_ms": separate_ms}
+
+    # MACs of one 2 s forward (a CPU copy), and where a B=16 bfloat16 forward's time goes
+    macs = conv_dot_macs(model, *requests[1])
+    print(f"ctcnet MACs per 2 s forward: {macs / 1e9:.2f} G (paper {CTCNET_PAPER_GMACS} G)")
+    if not abs(macs / 1e9 - CTCNET_PAPER_GMACS) <= 0.05 * CTCNET_PAPER_GMACS:
+        fail(f"ctcnet: {macs / 1e9} GMACs, not within 5% of the paper's {CTCNET_PAPER_GMACS}")
+    mix, emb = requests[16]
+    profile = launches_of(lambda: profile_line(
+        {"model": "CTCNet-16", "dtype": "bfloat16", "B": 16},
+        lambda: separate(model, mix, emb, dtype=torch.bfloat16), PROFILE_ITERS, ()),
+        {}, "ctcnet profile")
+    launches = launch_counts()
+    print("main path launches (ctcnet): " + json.dumps(launches))
+    if any(launches.values()):
+        fail(f"ctcnet: kernels launched {launches}, want none")
+    print("ctcnet " + json.dumps({
+        "card": smi, "config": os.path.basename(CTCNET_CONFIG),
+        "params": count_params(model), "gmacs_per_2s_forward": macs / 1e9,
+        "serving": serving, "frames_batch": CTCNET_FRAMES_BATCH, "train": training,
+        "fit": fit, "export_B1_float32": exported, "entry_points": entry_points,
+        "profile_bfloat16_B16": {k: profile[k] for k in (
+            "wall_ms", "device_busy_ms", "idle_share", "kernel_launches")},
+        "timing": "host clock around synchronised calls (serving: median of 7, train: "
+                  f"of {CTCNET_TRAIN_STEPS}); fit step: CUDA events",
+        "launches": launches}))
+    del model, video
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     import tempfile
 
@@ -2035,10 +2273,12 @@ def main():
         separate_launches = check_separate_cli(root, exp_dir)
         torch.cuda.empty_cache()
         export_launches = check_export(root, exp_dir, smi)
+        torch.cuda.empty_cache()
+        ctcnet_launches = check_ctcnet(root, smi)
     by_path = {"serving": launches, "serving_from_frames": frame_launches,
                "per_direction": direction_launches, "train": train_launches,
                "fit": fit_launches, "evaluate": eval_launches, "separate": separate_launches,
-               "export": export_launches}
+               "export": export_launches, "ctcnet": ctcnet_launches}
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     # no single PyTorch call computes an SRU recurrence or its backward;

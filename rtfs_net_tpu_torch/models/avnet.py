@@ -22,7 +22,9 @@ class AVNet(nn.Module):
         super().__init__()
         video_bn_params = video_bn_params or {}
         enc_cls = encoders.get(enc_dec_params["encoder_type"])
-        self.encoder = enc_cls(**accepted_kwargs(enc_cls, enc_dec_params))
+        self.encoder = enc_cls(**accepted_kwargs(enc_cls, {
+            **enc_dec_params, "in_chan": 1,
+            "upsampling_depth": audio_params.get("upsampling_depth", 1)}))
         enc_out_chan = self.encoder.out_chan
         audio_bn_chan = audio_bn_params.get("out_chan", enc_out_chan)
         video_bn_chan = video_bn_params.get("out_chan", pretrained_vout_chan)
@@ -49,7 +51,7 @@ class AVNet(nn.Module):
 
     def forward(self, audio_mixture, mouth_embedding=None):
         """(B, L) mixture [+ (B, C_v, T_v) lip embedding] -> (B, n_src, L)."""
-        emb = self.encoder(audio_mixture)  # (B, N, T, F)
+        emb = self.encoder(audio_mixture)  # (B, N, T, F), or (B, N, T) in the time domain
         audio = self.audio_bottleneck(emb)
         video = None if mouth_embedding is None else self.video_bottleneck(mouth_embedding)
         refined = self.refinement_module(audio, video)

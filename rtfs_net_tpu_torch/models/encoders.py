@@ -1,14 +1,62 @@
-"""Audio encoder (reference ``src/models/TDAVNet/encoder.py``), limited to
-the RTFS-Net STFT front-end."""
+"""Audio encoders (reference ``src/models/TDAVNet/encoder.py``): the
+CTCNet time-domain conv bank and the RTFS-Net STFT front-end."""
 from __future__ import annotations
 
+import math
 from typing import Any
 
 import torch
 from torch import nn
+import torch.nn.functional as F
 
 from .layers import ConvNormAct
 from ..ops import stft as stft_ops
+
+
+def unsqueeze_to_3d(x):
+    """(L,) -> (1, 1, L); (B, L) -> (B, 1, L); (B, 1, L) as it is."""
+    if x.dim() == 1:
+        return x.reshape(1, 1, -1)
+    return x[:, None] if x.dim() == 2 else x
+
+
+def pad_to_multiple(x, lcm: int):
+    """Zero-pad the last dim up to a multiple of ``lcm`` (a Python int from
+    the static shape, so an exported program pads by a constant)."""
+    rem = x.shape[-1] % lcm
+    return F.pad(x, (0, lcm - rem)) if rem else x
+
+
+class ConvolutionalEncoder(nn.Module):
+    """Time-domain bank (``encoder.py:58-119``): ``layers`` dilated Conv1d
+    branches (``encoder.{i}``: kernel k·(i+1), dilation i+1, xavier init)
+    summed, after padding the input to a multiple of ``lcms[0]``, then of
+    ``lcms[1]``, so that the separator's pyramid of ``upsampling_depth``
+    halvings divides the frames."""
+
+    def __init__(self, in_chan: int, out_chan: int, kernel_size: int, stride: int,
+                 act_type: Any = None, norm_type: Any = "gLN", bias: bool = False,
+                 layers: int = 1, upsampling_depth: int = 4):
+        super().__init__()
+        self.kernel_size, self.out_chan, self.upsampling_depth = (kernel_size, out_chan,
+                                                                  upsampling_depth)
+        self.encoder = nn.ModuleList(
+            ConvNormAct(in_chan, out_chan, kernel_size * (i + 1), stride=stride,
+                        dilation=i + 1, norm_type=norm_type, act_type=act_type,
+                        xavier_init=True, bias=bias)
+            for i in range(layers))
+
+    @property
+    def lcms(self):
+        k2, up2 = self.kernel_size // 2, 2 ** self.upsampling_depth
+        g = math.gcd(k2, up2)
+        return abs(self.out_chan // 2 * up2) // g, abs(k2 * up2) // g
+
+    def forward(self, x):
+        x = unsqueeze_to_3d(x)
+        lcm_1, lcm_2 = self.lcms
+        x = pad_to_multiple(pad_to_multiple(x, lcm_1), lcm_2)
+        return sum(branch(x) for branch in self.encoder)
 
 
 class STFTEncoder(nn.Module):
@@ -30,7 +78,7 @@ class STFTEncoder(nn.Module):
         return self.conv(spec)
 
 
-_REGISTRY = {"STFTEncoder": STFTEncoder}
+_REGISTRY = {"ConvolutionalEncoder": ConvolutionalEncoder, "STFTEncoder": STFTEncoder}
 
 
 def get(identifier):

@@ -13,13 +13,18 @@ from .attention_blocks import (
     MultiHeadSelfAttention2D,
     positional_encoding,
 )
-from .fusion_cells import ATTNFusionCell, InjectionMultiSum
+from .fusion_cells import (
+    ATTNFusionCell,
+    ConvGRUFusionCell,
+    ConvLSTMFusionCell,
+    InjectionMultiSum,
+)
 
 _REGISTRY = {
     cls.__name__: cls
     for cls in (ConvNormAct, ConvActNorm, FeedForwardNetwork, DualPathRNN,
                 MultiHeadSelfAttention, MultiHeadSelfAttention2D, GlobalAttention,
-                InjectionMultiSum, ATTNFusionCell)
+                InjectionMultiSum, ConvLSTMFusionCell, ConvGRUFusionCell, ATTNFusionCell)
 }
 
 

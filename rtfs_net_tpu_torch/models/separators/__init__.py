@@ -4,6 +4,7 @@ from __future__ import annotations
 
 from torch import nn
 
+from .frcnn import FRCNN, FRCNNBlock
 from .tdanet import TDANet, TDANetBlock
 
 
@@ -17,7 +18,7 @@ class IdentitySeparator(nn.Module):
         return x
 
 
-_REGISTRY = {"TDANet": TDANet}
+_REGISTRY = {"TDANet": TDANet, "FRCNN": FRCNN}
 
 
 def get(identifier):

@@ -7,20 +7,17 @@ global-attention stack (RTFS: DualPathRNN along F, DualPathRNN along T,
 MHSA2D) -> per-scale InjectionMultiSum reconstruction -> residual conv.
 
 In training mode every block call is checkpointed (the JAX package's
-``remat=True``): its activations are dropped after the forward and
-recomputed in the backward.
+``remat=True``; ``repeats.py``).
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
-import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
+from .repeats import RepeatedBlocks
 from ..layers import ConvNormAct, InjectionMultiSum, build
 from ...ops.conv import adaptive_avg_pool
-from ...ops.dropout import active_generator, use_generator
 
 
 class TDANetBlock(nn.Module):
@@ -66,75 +63,19 @@ class TDANetBlock(nn.Module):
         return self.residual_conv(expanded) + residual
 
 
-def checkpointed(block: nn.Module, x):
-    """``block(x)`` under ``torch.utils.checkpoint``, with the recompute in
-    the backward made to repeat the forward exactly:
-
-    * dropout masks: the recompute draws from the same active generator,
-      reset to its state at the forward call (``checkpoint`` itself only
-      restores PyTorch's global generators), and the generator is put back
-      where the forward left it afterwards;
-    * BatchNorm statistics: the recompute's update of the running buffers
-      is undone, so they move once per step, as JAX discards the
-      recompute's ``batch_stats``."""
-    generator = active_generator()
-    start = None if generator is None else generator.get_state()
-    calls = 0
-
-    def run(inp):
-        nonlocal calls
-        calls += 1
-        if calls == 1:
-            return block(inp)
-        after = None if generator is None else generator.get_state()
-        buffers = [buf.clone() for buf in block.buffers()]
-        if generator is not None:
-            generator.set_state(start)
-        try:
-            with use_generator(generator):
-                return block(inp)
-        finally:
-            if generator is not None:
-                generator.set_state(after)
-            with torch.no_grad():
-                for buf, saved in zip(block.buffers(), buffers):
-                    buf.copy_(saved)
-
-    return checkpoint(run, x, use_reentrant=False)
-
-
-class TDANet(nn.Module):
+class TDANet(RepeatedBlocks):
     """Repeat container (``tdanet.py:136-211``): ``shared=True`` reuses one
-    block (``blocks``), else one block per repeat (``blocks.{i}``). With
-    ``remat`` (the default, as in JAX), ``get_block`` returns a callable
-    that checkpoints the block when it trains under autograd."""
+    block (``blocks``), else one block per repeat (``blocks.{i}``); with
+    ``remat`` (the default, as in JAX) a block that trains under autograd
+    is checkpointed (``repeats.RepeatedBlocks``)."""
 
     def __init__(self, in_chan: int = -1, hid_chan: int = -1, kernel_size: int = 5,
                  stride: int = 2, norm_type: Any = "gLN", act_type: Any = "PReLU",
                  upsampling_depth: int = 4, layers: Optional[Dict[str, dict]] = None,
                  repeats: int = 4, shared: bool = False, is2d: bool = False,
                  remat: bool = True):
-        super().__init__()
-        self.repeats, self.shared, self.remat = repeats, shared, remat
-
         def block():
             return TDANetBlock(in_chan, hid_chan, kernel_size, stride, norm_type,
                                act_type, upsampling_depth, layers, is2d)
 
-        self.blocks = block() if shared else nn.ModuleList(block() for _ in range(repeats))
-
-    def get_block(self, i: int):
-        block = self.blocks if self.shared else self.blocks[i]
-
-        def call(x):
-            if self.remat and block.training and torch.is_grad_enabled():
-                return checkpointed(block, x)
-            return block(x)
-
-        return call
-
-    def forward(self, x):
-        residual = x
-        for i in range(self.repeats):
-            x = self.get_block(i)(x + residual if i > 0 else x)
-        return x
+        super().__init__(block, repeats, shared, remat)

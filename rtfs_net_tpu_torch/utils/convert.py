@@ -205,36 +205,105 @@ def tdanet_block(r: Reader, out, src: str, path: Path, conf: dict):
     conv_norm_act(r, out, _k(src, "residual_conv"), path + ("residual_conv",))
 
 
+def frcnn_block(r: Reader, out, src: str, path: Path, conf: dict):
+    depth = conf.get("upsampling_depth", 4)
+    conv_norm_act(r, out, _k(src, "gateway"), path + ("gateway",))
+    conv_norm_act(r, out, _k(src, "projection"), path + ("projection",))
+    for i in range(depth):
+        conv_norm_act(r, out, _k(src, f"downsample_layers.{i}"), path + (f"down{i}",))
+        if i >= 1:
+            conv_norm_act(r, out, _k(src, f"fusion_layers.{i}.0"), path + (f"lateral{i}",))
+        conv_norm_act(r, out, _k(src, f"concat_layers.{i}"), path + (f"concat{i}",))
+    for i in range(2):
+        conv_norm_act(r, out, _k(src, f"residual_conv.{i}"), path + (f"residual_conv{i}",))
+
+
+_BLOCKS = {"TDANet": tdanet_block, "FRCNN": frcnn_block}
+
+
 def separator(r: Reader, out, src: str, path: Path, params: dict, which: str):
     net = params.get(f"{which}_net")
     if not net:
         return
-    if net != "TDANet":
+    if net not in _BLOCKS:
         raise NotImplementedError(f"{which}_net {net!r} is not ported yet")
+    block = _BLOCKS[net]
     if params.get("shared", False):
-        tdanet_block(r, out, _k(src, "blocks"), path + ("blocks",), params)
+        block(r, out, _k(src, "blocks"), path + ("blocks",), params)
     else:
         for i in range(params.get("repeats", 1)):
-            tdanet_block(r, out, _k(src, f"blocks.{i}"), path + (f"blocks_{i}",), params)
+            block(r, out, _k(src, f"blocks.{i}"), path + (f"blocks_{i}",), params)
+
+
+def gated_fusion_cell(r: Reader, out, src: str, path: Path):
+    """ConvLSTMFusionCell or ConvGRUFusionCell."""
+    for name in ("conv_a", "conv_b"):
+        conv_norm_act(r, out, _k(src, name), path + (name,))
+
+
+# fusion type -> its modules as (torch name, JAX name, mapper): those every
+# block has, and those only blocks with video fusion (not the last repeat)
+# have. The reference names every cell fusion's cells audio_lstm/video_lstm;
+# SumFusion's audio_conv maps audio to video.
+_FUSION_MODULES = {
+    "ATTNFusion": ([("audio_lstm", "audio_attn", attn_fusion_cell)],
+                   [("video_lstm", "video_attn", attn_fusion_cell)]),
+    "ConcatFusion": ([("audio_conv", "audio_conv", conv_norm_act)],
+                     [("video_conv", "video_conv", conv_norm_act)]),
+    "SumFusion": ([("video_conv", "video_conv", conv_norm_act)],
+                  [("audio_conv", "audio_conv", conv_norm_act)]),
+    "InjectionFusion": ([("video_conv", "video_conv", conv_norm_act),
+                         ("audio_inj", "audio_inj", injection_multi_sum)],
+                        [("audio_conv", "audio_conv", conv_norm_act),
+                         ("video_inj", "video_inj", injection_multi_sum)]),
+    "LSTMFusion": ([("audio_lstm", "audio_lstm", gated_fusion_cell)],
+                   [("video_lstm", "video_lstm", gated_fusion_cell)]),
+    "GRUFusion": ([("audio_lstm", "audio_gru", gated_fusion_cell)],
+                  [("video_lstm", "video_gru", gated_fusion_cell)]),
+}
+
+
+def fusion_block(r: Reader, out, src: str, path: Path, ftype: str):
+    """One fusion block of type ``ftype``."""
+    always, video_side = _FUSION_MODULES[ftype]
+    present = [m for m in video_side if r.node(path + (m[1],)) is not None]
+    for ours, theirs, mapper in always + present:
+        mapper(r, out, _k(src, ours), path + (theirs,))
 
 
 def fusion(r: Reader, out, src: str, path: Path, fusion_params: dict, repeats: int):
+    """MultiModalFusion's blocks, shared or one per repeat."""
     if repeats <= 0:
         return
     ftype = fusion_params.get("fusion_type", "ConcatFusion")
-    if ftype != "ATTNFusion":
-        raise NotImplementedError(f"fusion_type {ftype!r} is not ported yet")
-
-    def one(fsrc, fpath):
-        attn_fusion_cell(r, out, _k(fsrc, "audio_lstm"), fpath + ("audio_attn",))
-        if r.node(fpath + ("video_attn",)) is not None:
-            attn_fusion_cell(r, out, _k(fsrc, "video_lstm"), fpath + ("video_attn",))
-
     if fusion_params.get("fusion_shared", False):
-        one(_k(src, "fusion_module"), path + ("fusion_module",))
+        fusion_block(r, out, _k(src, "fusion_module"), path + ("fusion_module",), ftype)
     else:
         for i in range(repeats):
-            one(_k(src, f"fusion_module.{i}"), path + (f"fusion_module_{i}",))
+            fusion_block(r, out, _k(src, f"fusion_module.{i}"),
+                         path + (f"fusion_module_{i}",), ftype)
+
+
+def mask_generator(r: Reader, out, src: str, path: Path, mg_type: Optional[str] = None):
+    """MaskGenerator (no weights with ``direct``) or, with ``mg_type``
+    "MaskGenerator2Chan", that one: the ``mask_generator`` Sequential's
+    PReLU and conv, and the output gate's ``output`` and ``gate``."""
+    if r.node(path + ("prelu",)) is None:
+        return
+    out[_k(src, "mask_generator.0.weight")] = r.get(path + ("prelu", "alpha"))
+    if mg_type == "MaskGenerator2Chan":
+        _leaf(r, out, _k(src, "mask_generator.1"), path + ("deconv",))
+    else:
+        conv_norm_act(r, out, _k(src, "mask_generator.1"), path + ("mask_conv",))
+    for name in ("output", "gate"):
+        if r.node(path + (name,)) is not None:
+            conv_norm_act(r, out, _k(src, name), path + (name,))
+
+
+def conv_encoder(r: Reader, out, src: str, path: Path, layers: int = 1):
+    """ConvolutionalEncoder: JAX ``branch{i}`` -> ``encoder.{i}``."""
+    for i in range(layers):
+        conv_norm_act(r, out, _k(src, f"encoder.{i}"), path + (f"branch{i}",))
 
 
 def state_dict_from_jax(variables, audionet_conf: dict) -> Dict[str, torch.Tensor]:
@@ -242,9 +311,11 @@ def state_dict_from_jax(variables, audionet_conf: dict) -> Dict[str, torch.Tenso
     section) -> the port AVNet's ``state_dict``."""
     conf = audionet_conf.get("audionet", audionet_conf)
     r, out = Reader(variables), {}
-    if conf["enc_dec_params"]["encoder_type"] != "STFTEncoder":
-        raise NotImplementedError("only the STFTEncoder is ported yet")
-    conv_norm_act(r, out, "encoder.conv", ("encoder", "conv"))
+    enc = conf["enc_dec_params"]
+    if enc["encoder_type"] == "STFTEncoder":
+        conv_norm_act(r, out, "encoder.conv", ("encoder", "conv"))
+    else:
+        conv_encoder(r, out, "encoder", ("encoder",), enc.get("layers", 1))
     conv_norm_act(r, out, "audio_bottleneck", ("audio_bottleneck",))
     conv_norm_act(r, out, "video_bottleneck", ("video_bottleneck",))
     ap, vp = conf["audio_params"], conf.get("video_params") or {}
@@ -253,8 +324,8 @@ def state_dict_from_jax(variables, audionet_conf: dict) -> Dict[str, torch.Tenso
     separator(r, out, "refinement_module.video_net", rm + ("video_net",), vp, "video")
     fusion(r, out, "refinement_module.crossmodal_fusion", rm + ("crossmodal_fusion",),
            conf.get("fusion_params") or {}, vp.get("repeats", 0))
-    out["mask_generator.mask_generator.0.weight"] = r.get(("mask_generator", "prelu", "alpha"))
-    conv_norm_act(r, out, "mask_generator.mask_generator.1", ("mask_generator", "mask_conv"))
+    mask_generator(r, out, "mask_generator", ("mask_generator",),
+                   (conf.get("mask_generation_params") or {}).get("mask_generator_type"))
     if r.node(("decoder", "decoder")) is not None:
         _leaf(r, out, "decoder.decoder", ("decoder", "decoder"))
     return to_tensors(out)

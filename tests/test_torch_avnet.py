@@ -6,8 +6,9 @@
   and ``separate()`` match JAX at L=2000 within 5e-4·max|out|, the
   tolerance of tests/test_avnet_convert.py:324-325.
 * ``state_dict_from_jax`` inverts ``convert_avnet`` exactly.
-* The full-width RTFS-Net-4 config builds with exactly the parameters the
-  JAX model has (names mapped, shapes equal); no forward at that size.
+* Each of the ten shipped configs (``rtfs_net_tpu_torch/configs/``) builds
+  at full width with exactly the parameters the JAX model has (names
+  mapped, shapes equal); no forward at that size.
 """
 import os
 
@@ -108,10 +109,15 @@ def test_state_dict_round_trip_through_convert_avnet(tiny):
         np.testing.assert_array_equal(back[k].numpy(), t.numpy(), err_msg=k)
 
 
-def test_rtfs4_config_builds_the_jax_parameter_set():
-    path = os.path.join(os.path.dirname(__file__), "..", "rtfs_net_tpu_torch", "configs",
-                        "lrs2_RTFSNet_4_layer.yaml")
-    with open(path) as f:
+CONFIG_DIR = os.path.join(os.path.dirname(__file__), "..", "rtfs_net_tpu_torch", "configs")
+CONFIGS = sorted(name[:-len(".yaml")] for name in os.listdir(CONFIG_DIR)
+                 if name.endswith(".yaml"))
+
+
+def _builds_the_jax_parameter_set(name):
+    """The port's model of a shipped config has exactly the JAX model's
+    parameters (names mapped, shapes equal); returns their count."""
+    with open(os.path.join(CONFIG_DIR, f"{name}.yaml")) as f:
         conf = yaml.safe_load(f)["audionet"]
     shapes = jax.eval_shape(JaxAVNet(**conf).init, jax.random.PRNGKey(0),
                             jnp.zeros((1, 32000)), jnp.zeros((1, 512, 50)))
@@ -119,5 +125,23 @@ def test_rtfs4_config_builds_the_jax_parameter_set():
     want = {k: tuple(t.shape) for k, t in state_dict_from_jax(template, conf).items()}
     model = build_model(conf, device="cpu")
     assert {k: tuple(t.shape) for k, t in model.state_dict().items()} == want
-    assert sum(t.numel() for t in model.parameters()) == sum(
-        int(np.prod(s.shape)) for s in jax.tree_util.tree_leaves(shapes["params"]))
+    n = sum(t.numel() for t in model.parameters())
+    assert n == sum(int(np.prod(s.shape)) for s in jax.tree_util.tree_leaves(shapes["params"]))
+    return n
+
+
+def test_rtfs4_config_builds_the_jax_parameter_set():
+    _builds_the_jax_parameter_set("lrs2_RTFSNet_4_layer")
+
+
+def test_all_ten_configs_ship():
+    assert len(CONFIGS) == 10 and "lrs2_CTCNet_16_layer" in CONFIGS
+
+
+@pytest.mark.parametrize("name", CONFIGS)
+def test_shipped_config_builds_the_jax_parameter_set(name):
+    """Each YAML of ``rtfs_net_tpu_torch/configs/``; CTCNet-16 has the
+    paper's 7.0 M parameters within the bounds of tests/test_models.py."""
+    n = _builds_the_jax_parameter_set(name)
+    if "CTCNet" in name:
+        assert 6.5e6 < n < 7.5e6, n

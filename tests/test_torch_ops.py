@@ -1,6 +1,11 @@
 """PyTorch port vs JAX package: primitive ops (norms, activations, convs,
 interpolation, pooling, STFT) on the same numpy inputs and weights.
 
+Nearest interpolation's index map: the port's is the exact
+``dst*in // out``; it equals the JAX package's at every size of a 2 s
+forward of RTFS-Net-4 and of CTCNet-16 but one, where (as at the sizes of
+``JAX_OFF_BY_ONE``) the JAX map is one source index short.
+
 Tolerance 1e-5 (abs and rel) for everything but the STFT, which holds
 the JAX DFT-as-matmul against torch.stft's FFT at the tolerances of
 tests/test_stft.py (2e-4·max|spec| forward, 5e-5 inverse).
@@ -17,7 +22,8 @@ from rtfs_net_tpu.ops import stft as jstft
 from rtfs_net_tpu_torch.ops import activations, conv, normalizations, stft
 from rtfs_net_tpu_torch.utils import convert
 
-from _torch_port import jax_apply, jax_init, load, one_torch_thread, port_apply  # noqa: F401
+from _torch_port import (jax_apply, jax_init, jax_nearest_index, load,  # noqa: F401
+                         one_torch_thread, port_apply)
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 
@@ -116,6 +122,59 @@ def test_interpolate_nearest(rng, src, dst):
     want = np.asarray(jconv.interpolate_nearest(jnp.asarray(x), dst))
     got = conv.interpolate_nearest(torch.from_numpy(x), dst).numpy()
     np.testing.assert_allclose(got, want, **TOL)
+
+
+# (in, out) of every nearest interpolation of a 2 s forward (32000 samples,
+# 50 video frames), recorded from the port's forward at those lengths
+NEAREST_2S = {
+    "RTFSNet_4": [(7, 13), (7, 25), (7, 50), (13, 25), (25, 50), (50, 251), (64, 129),
+                  (125, 251)],
+    "CTCNet_16": [(7, 13), (7, 50), (13, 25), (13, 50), (25, 50), (50, 3280), (205, 410),
+                  (205, 3280), (410, 820), (410, 3280), (820, 1640), (820, 3280),
+                  (1640, 3280)],  # and (3280, 50): JAX_OFF_BY_ONE
+}
+# (in, out, the dst where the JAX package's float64 floor(dst * (in/out))
+# lands one below the exact dst*in // out): RTFS-Net's video TDANet in
+# `separate` on 3.75 s (12, 24 -> 94) and 6.25 s (20 -> 156) inputs, a
+# 56-frame request, CTCNet's audio pyramid on 4 s (1640 -> 6558), and
+# CTCNet-16's ConcatFusion at 2 s, its audio frames onto the video's
+JAX_OFF_BY_ONE = [(12, 94, [47]), (24, 94, [47]), (20, 156, [117]), (3694, 56, [28]),
+                  (1640, 6558, [3279]), (3280, 50, [15, 25, 30, 45])]
+
+
+def _port_nearest_index(n_in, n_out):
+    x = torch.arange(n_in, dtype=torch.float64).reshape(1, 1, n_in)
+    return conv.interpolate_nearest(x, (n_out,)).reshape(-1).long().numpy()
+
+
+@pytest.mark.parametrize("n_in,n_out", sorted(
+    {(i, o) for pairs in NEAREST_2S.values() for i, o in pairs}
+    | {(i, o) for i, o, _ in JAX_OFF_BY_ONE}))
+def test_interpolate_nearest_follows_the_exact_rule(n_in, n_out):
+    np.testing.assert_array_equal(_port_nearest_index(n_in, n_out),
+                                  np.arange(n_out) * n_in // n_out)
+
+
+@pytest.mark.parametrize("config", sorted(NEAREST_2S))
+def test_interpolate_nearest_matches_jax_at_2s_sizes(config):
+    for n_in, n_out in NEAREST_2S[config]:
+        np.testing.assert_array_equal(_port_nearest_index(n_in, n_out),
+                                      jax_nearest_index(n_in, n_out),
+                                      err_msg=f"{config}: {n_in} -> {n_out}")
+
+
+@pytest.mark.parametrize("n_in,n_out,wrong", JAX_OFF_BY_ONE)
+def test_jax_interpolate_nearest_is_off_by_one(n_in, n_out, wrong):
+    """The JAX package's fault (ROADMAP Queue 3), pinned: its map is one
+    source index short at exactly these positions and exact elsewhere.
+    Once the JAX package is fixed this fails; then the fault leaves the
+    queue and this test goes."""
+    exact = np.arange(n_out) * n_in // n_out
+    got = jax_nearest_index(n_in, n_out)
+    assert list(np.nonzero(got != exact)[0]) == wrong, (
+        f"{n_in} -> {n_out}: the JAX map differs from the exact one at "
+        f"{list(np.nonzero(got != exact)[0])}, not {wrong}; fixed in the JAX package?")
+    np.testing.assert_array_equal(got[wrong], exact[wrong] - 1)
 
 
 @pytest.mark.parametrize("src,dst", [((251, 129), (125, 64)), ((63, 33), (31, 16)),
