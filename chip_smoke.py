@@ -150,7 +150,26 @@ Phases (any failure exits non-zero before the final line):
    of the paper's 167.2 G; a ``profile`` line of a B=16 bfloat16 forward; a
    ``ctcnet`` line (ms per forward and per utterance, ms per step, peak
    memory, MACs, parameters, device busy and idle share, the card).
-19. a ``{"kernels": [...]}`` line (with each kernel's launches on every
+19. video_zoo: the video front-end's other backbones and the last two
+   CLIs. K3 against its plain version at ShuffleNetV2's planes (B = 4:
+   (200, 58, 11, 11), (200, 116, 6, 6), (200, 232, 3, 3), 3x3, pads (1, 1)),
+   forward and dx, both dtypes, with device times (median of 6), the bound
+   and ``F.conv2d(groups=C, padding=1)``'s time. RTFS-Net-4 served from
+   frames through the FRCNN video model with a ShuffleNetV2 trunk (width
+   1.0, a 1024-channel embedding) at B = 1, 4, 16 in both dtypes and 128 in
+   bfloat16: K1 32 and K3 53 launches a forward (40 audio, 13 video); B=1
+   float32 against the CPU; ms per forward and peak memory; a ``profile``
+   line of the B=128 bfloat16 forward. The video model alone at each width (0.5, 1.0, 1.5, 2.0), B=1 against the CPU. ``train_autoencoder.main`` on a
+   synthetic mouth-track manifest (2 epochs, batch 4): finite losses,
+   ``best_model.ckpt`` and ``best_k_models.json``; the checkpoint loaded
+   into ``AEVideoModel`` through ``train.build_video_model``; RTFS-Net-4
+   with a 1936-channel embedding (a 1x1 video bottleneck to 512 channels)
+   served through it at B = 1, 4 in both
+   dtypes (B=1 float32 against the CPU), and one ``System.train_step`` at
+   B = 4 with ``train_video_model`` (K2 64 + 32, K3 120) that moves every
+   AE parameter. ``find_unused_params.main`` at full width on the card (K2
+   32 + 32, K3 80) lists what it lists on the CPU. A ``video_zoo`` line.
+20. a ``{"kernels": [...]}`` line (with each kernel's launches on every
    path), then ``{"ok": true, "device": {...}}`` last.
 
 Every comparison on the card runs with TF32 off (cuDNN convolutions and
@@ -215,6 +234,22 @@ EXPORT_BUCKETS, EXPORT_REQUESTS = (1, 4), (1, 3, 4, 5)
 # the ctcnet phase: the paper's MACs per 2 s forward (tests/test_macs_paper.py),
 # the train batch and timed steps per dtype, the batch served from frames
 CTCNET_PAPER_GMACS, CTCNET_TRAIN_BATCH, CTCNET_TRAIN_STEPS, CTCNET_FRAMES_BATCH = 167.2, 4, 3, 4
+# the video_zoo phase: ShuffleNet's width served in full and the widths
+# checked alone (at seed weights its embedding is ~1e-5 of the mixture's
+# scale, so the served output barely sees it); its stride-1 depthwise convs (K3) per video forward by
+# (H, W) plane and their channels at width 1.0 (88x88 frames: 44 after the
+# front-end conv, 22 after its max-pool, then 11, 6 and 3 through the three
+# stages, whose first block downsamples); the batch K3 is timed at there;
+# the autoencoder's epochs and batch, its embedding's channels (16 x 11 x
+# 11), and the video bottleneck RTFS-Net-4 takes it through: the fusion's
+# grouped convs need a multiple of the audio's 256 channels, which 1936 is
+# not, so a 1x1 conv to the 512 of the ResNet embedding
+SHUFFLE_WIDTH, SHUFFLE_WIDTHS = 1.0, (0.5, 1.0, 1.5, 2.0)
+SHUFFLE_DW = {(11, 11): (3, 58), (6, 6): (7, 116), (3, 3): (3, 232)}
+SHUFFLE_DW_LAUNCHES = sum(n for n, _ in SHUFFLE_DW.values())  # 13 per video forward
+SHUFFLE_PLANE_BATCH, PLANE_TIMINGS = 4, 6
+AE_EPOCHS, AE_BATCH, AE_SERVE_BATCHES, AE_EMBEDDING = 2, 4, (1, 4), 1936
+AE_VIDEO_BN = {"kernel_size": 1, "out_chan": 512}
 CHANNELS = 64  # TDANet hid_chan: the depthwise convs' channels
 DW_PLANES = {(251, 129): 3, (125, 64): 7}  # K3 launches per TDANet block, by (T, F)
 DW_KERNEL, DW_PADS = (4, 4), ((1, 2), (1, 2))
@@ -657,34 +692,45 @@ def check_dw_conv_edges(gen, max_err):
     tensor at ``offset`` elements."""
     import torch
 
-    _, _, kdw, _ = kernel_modules()
     for shape, kernel, pads, offset in DW_EDGE:
-        (lo_t, hi_t), (lo_f, hi_f) = pads
-        dx_pads = ((kernel[0] - 1 - lo_t, kernel[0] - 1 - hi_t),
-                   (kernel[1] - 1 - lo_f, kernel[1] - 1 - hi_f))
         for dtype in (torch.float32, torch.bfloat16):
-            n = math.prod(shape)
-            x = torch.randn(n + offset, generator=gen, device="cuda").to(dtype)[offset:]
-            x = x.view(shape).requires_grad_()
-            dy = torch.randn(shape, generator=gen, device="cuda").to(dtype)
-            w = torch.randn((shape[1], 1, *kernel), generator=gen, device="cuda")
-            before = kdw.launches
-            y = kdw.dw_conv2d_same(x, w, pads)
-            y.backward(dy)
-            torch.cuda.synchronize()
-            if kdw.launches - before != 2:
-                fail(f"dw_conv2d_same edge x={shape}: {kdw.launches - before} launches, want 2")
-            with torch.no_grad():
-                ok, err = tolerance_ok(y, kdw.dw_conv2d_same_ref(x, w, pads), dtype)
-                dx_ok, dx_err = tolerance_ok(x.grad, kdw.dw_conv2d_same_ref(
-                    dy, w.flip(2, 3), dx_pads), dtype)
+            err, dx_err = check_dw_forward_dx(shape, kernel, pads, offset, dtype, gen, "edge")
             print("dw_conv2d_same edge " + json.dumps({
                 "x": shape, "k": kernel, "pads": pads, "offset": offset,
                 "dtype": dtype_name(dtype), "max_abs_err": err, "dx_max_abs_err": dx_err}))
-            if not (ok and dx_ok):
-                fail(f"dw_conv2d_same edge x={shape} k={kernel} pads={pads} offset={offset} "
-                     f"{dtype}: max_abs_err {err}, dx {dx_err} out of tolerance")
             max_err[dtype] = max(max_err[dtype], err, dx_err)
+
+
+def check_dw_forward_dx(shape, kernel, pads, offset, dtype, gen, what):
+    """K3's forward and dx (two launches through the autograd Function)
+    against the plain version on random x, a contiguous slice of a larger
+    tensor at ``offset`` elements; fails out of tolerance. Returns the two
+    max abs errors."""
+    import torch
+
+    _, _, kdw, _ = kernel_modules()
+    (lo_t, hi_t), (lo_f, hi_f) = pads
+    dx_pads = ((kernel[0] - 1 - lo_t, kernel[0] - 1 - hi_t),
+               (kernel[1] - 1 - lo_f, kernel[1] - 1 - hi_f))
+    n = math.prod(shape)
+    x = torch.randn(n + offset, generator=gen, device="cuda").to(dtype)[offset:]
+    x = x.view(shape).requires_grad_()
+    dy = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    w = torch.randn((shape[1], 1, *kernel), generator=gen, device="cuda")
+    before = kdw.launches
+    y = kdw.dw_conv2d_same(x, w, pads)
+    y.backward(dy)
+    torch.cuda.synchronize()
+    if kdw.launches - before != 2:
+        fail(f"dw_conv2d_same {what} x={shape}: {kdw.launches - before} launches, want 2")
+    with torch.no_grad():
+        ok, err = tolerance_ok(y, kdw.dw_conv2d_same_ref(x, w, pads), dtype)
+        dx_ok, dx_err = tolerance_ok(x.grad, kdw.dw_conv2d_same_ref(
+            dy, w.flip(2, 3), dx_pads), dtype)
+    if not (ok and dx_ok):
+        fail(f"dw_conv2d_same {what} x={shape} k={kernel} pads={pads} offset={offset} "
+             f"{dtype}: max_abs_err {err}, dx {dx_err} out of tolerance")
+    return err, dx_err
 
 
 def check_sru_direction_kernel():
@@ -826,11 +872,13 @@ def serving_setup():
     return model, video, requests, frame_requests
 
 
-def check_serving(label, model, requests, video=None):
+def check_serving(label, model, requests, video=None, want=None):
     """One serving path: a counted forward per request (float32; bfloat16
-    at the big batch), then B=1 against the CPU, then timings. ``requests``
+    at the big batch), each launching the kernels ``want`` says (default:
+    K1 32, K3 40), then B=1 against the CPU, then timings. ``requests``
     maps B to (mixture, lip embedding), or with ``video`` to (mixture,
-    frames). Returns the path's launch counts and its outputs by B."""
+    frames). Returns the path's launch counts, its outputs by B and its
+    timings by dtype and B."""
     import torch
 
     from rtfs_net_tpu_torch.utils.separator import separate
@@ -842,9 +890,9 @@ def check_serving(label, model, requests, video=None):
         mix, third = requests[B]
         return separate(model, mix, third, video_model=video, dtype=dtype)
 
+    want = want or {"K1": SRU_LAUNCHES, "K3": DW_LAUNCHES}
     reset_launch_counts()
-    outs = {B: launches_of(lambda: forward(B, dtypes(B)[0]),
-                           {"K1": 32, "K3": DW_LAUNCHES}, f"{label} B={B}")
+    outs = {B: launches_of(lambda: forward(B, dtypes(B)[0]), want, f"{label} B={B}")
             for B in requests}
     launches = launch_counts()
     print(f"main path launches ({label}): " + json.dumps(launches))
@@ -866,6 +914,7 @@ def check_serving(label, model, requests, video=None):
     if not err <= 5e-4 * scale:
         fail(f"{label}: B=1 float32 output disagrees with the CPU forward")
 
+    timings = {}
     for dtype in (torch.float32, torch.bfloat16):
         for B in requests:
             if dtype not in dtypes(B):
@@ -875,11 +924,12 @@ def check_serving(label, model, requests, video=None):
                 fail(f"{label} B={B} {dtype}: non-finite output")
             times = host_ms(lambda: forward(B, dtype), SERVE_REPS)
             median = times[len(times) // 2]
-            print(f"{label} " + json.dumps({
-                "dtype": dtype_name(dtype), "B": B, "ms_per_forward_median": median,
-                "ms_per_forward_min": times[0], "ms_per_utt_median": median / B,
-                "peak_mem_GiB": torch.cuda.max_memory_allocated() / 2 ** 30}))
-    return launches, outs
+            row = timings[f"{dtype_name(dtype)}_B{B}"] = {
+                "ms_per_forward_median": median, "ms_per_forward_min": times[0],
+                "ms_per_utt_median": median / B,
+                "peak_mem_GiB": torch.cuda.max_memory_allocated() / 2 ** 30}
+            print(f"{label} " + json.dumps({"dtype": dtype_name(dtype), "B": B, **row}))
+    return launches, outs, timings
 
 
 def check_bench_point(model):
@@ -2213,6 +2263,214 @@ def check_ctcnet(root, smi):
     return launches
 
 
+def check_dw_conv_planes():
+    """K3 at ShuffleNet's planes: (50·B, C, H, W) for B = 4 frames at width
+    1.0, 3x3, pads (1, 1). Forward and dx (through the autograd Function)
+    against the plain version in both dtypes; device times of each (median
+    of ``PLANE_TIMINGS`` runs of 20 launches, inputs rotated past the L2),
+    the bytes bound and ``F.conv2d(groups=C, padding=1)``'s time. Returns
+    the rows."""
+    import torch
+    import torch.nn.functional as F
+
+    _, _, kdw, _ = kernel_modules()
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    pads, frames = ((1, 1), (1, 1)), SHUFFLE_PLANE_BATCH * VIDEO_FRAMES
+    rows = []
+
+    def median_ms(fn):
+        times = sorted(event_ms(fn, reps=20) for _ in range(PLANE_TIMINGS))
+        return times[len(times) // 2]
+
+    for (Hp, Wp), (_, C) in SHUFFLE_DW.items():
+        shape = (frames, C, Hp, Wp)
+        for dtype in (torch.float32, torch.bfloat16):
+            err, dx_err = check_dw_forward_dx(shape, (3, 3), pads, 0, dtype, gen, "plane")
+            n, item = math.prod(shape), torch.tensor([], dtype=dtype).element_size()
+            w = torch.randn((C, 1, 3, 3), generator=gen, device="cuda")
+            copies = 1 + int(100e6 // (n * item))
+            xs = [torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                  for _ in range(copies)]
+            it, wt, w_lib = itertools.count(), w.flip(2, 3), w.to(dtype)
+            with torch.no_grad():
+                ms = median_ms(lambda: kdw.dw_conv2d_same(xs[next(it) % copies], w, pads))
+                dx_ms = median_ms(lambda: kdw.dw_conv2d_same(xs[next(it) % copies], wt, pads))
+                library_ms = median_ms(lambda: F.conv2d(xs[next(it) % copies], w_lib,
+                                                        padding=1, groups=C))
+            bytes_ms = (2 * n * item + w.numel() * 4) / HBM_BYTES_PER_S * 1e3
+            ops_ms = 2 * 9 * n / FP32_OPS_PER_S * 1e3
+            row = {"x": shape, "dtype": dtype_name(dtype), "max_abs_err": err,
+                   "dx_max_abs_err": dx_err, "ms": ms, "dx_ms": dx_ms,
+                   "library_ms": library_ms, "bound_ms": max(bytes_ms, ops_ms),
+                   "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                   "slower_than_library": ms > library_ms}
+            print("dw_conv2d_same shufflenet plane " + json.dumps(row))
+            rows.append(row)
+            del xs
+    return rows
+
+
+def zoo_conf(videonet, emb_chan):
+    """RTFS-Net-4's YAML with ``videonet`` over its video block and the
+    audio model's embedding channels set to ``emb_chan``."""
+    import yaml
+
+    with open(CONFIG) as f:
+        conf = yaml.safe_load(f)
+    conf["videonet"] = {**conf["videonet"], **videonet}
+    conf["audionet"]["pretrained_vout_chan"] = emb_chan
+    return conf
+
+
+def frame_requests_for(batches, gen):
+    import torch
+
+    return {B: (torch.randn((B, SAMPLES), generator=gen, device="cuda"),
+                torch.randn((B, 1, VIDEO_FRAMES, MOUTH_SIZE, MOUTH_SIZE), generator=gen,
+                            device="cuda"))
+            for B in batches}
+
+
+def check_video_zoo(root, smi):
+    """Phase 19: the video front-end's other backbones and the last two
+    CLIs, in the directory ``root``. K3 at ShuffleNet's planes against its
+    plain version; RTFS-Net-4 served from frames through ShuffleNetV2 (53 K3
+    launches a forward); each width's video model alone against the CPU; ``train_autoencoder.main`` on a synthetic mouth-track manifest, its
+    checkpoint loaded into ``AEVideoModel``, which then serves and trains
+    under RTFS-Net-4; ``find_unused_params.main`` on the card against the
+    CPU. Returns each path's launch counts, counted from 0 just before it."""
+    import torch
+
+    from rtfs_net_tpu_torch import find_unused_params, train, train_autoencoder
+    from rtfs_net_tpu_torch.losses import PITLossWrapper, pairwise_neg_sisdr, pairwise_neg_snr
+    from rtfs_net_tpu_torch.models import build_model, build_video_model
+    from rtfs_net_tpu_torch.system import System, make_optimizer
+    from rtfs_net_tpu_torch.utils.separator import separate
+
+    planes = check_dw_conv_planes()
+    paths, out = {}, {"card": smi, "k3_planes": planes}
+    gen = torch.Generator(device="cuda").manual_seed(15)
+
+    # ShuffleNetV2 at width 1.0 behind RTFS-Net-4: 32 K1 and 40 + 13 K3 a forward
+    conf = zoo_conf({"backbone_type": "shufflenet", "width_mult": SHUFFLE_WIDTH}, 1024)
+    model = build_model(conf, device="cuda", generator=torch.Generator().manual_seed(0))
+    video = build_video_model(conf, device="cuda", generator=torch.Generator().manual_seed(0))
+    requests = frame_requests_for(SERVE_BATCHES + (BIG_BATCH,), gen)
+    paths["shufflenet_serving"], outs, out["shufflenet_serving"] = check_serving(
+        "serving from frames (shufflenet)", model, requests, video,
+        {"K1": SRU_LAUNCHES, "K3": DW_LAUNCHES + SHUFFLE_DW_LAUNCHES})
+    del outs
+    mix, frames = requests[BIG_BATCH]
+    profile = profile_line({"from": "frames (shufflenet)", "dtype": "bfloat16", "B": BIG_BATCH},
+                           lambda: separate(model, mix, frames, video_model=video,
+                                            dtype=torch.bfloat16), 1, SERVING_CATEGORIES)
+    out["shufflenet_profile_bfloat16_B128"] = {k: profile[k] for k in (
+        "wall_ms", "device_busy_ms", "idle_share", "kernel_launches", "by_category_ms")}
+    del model, video, requests, mix, frames
+    torch.cuda.empty_cache()
+
+    # each width's video model alone, B=1 float32 against the CPU
+    reset_launch_counts()
+    frames = torch.randn((1, 1, VIDEO_FRAMES, MOUTH_SIZE, MOUTH_SIZE), generator=gen,
+                         device="cuda")
+    widths = {}
+    for width in SHUFFLE_WIDTHS:
+        video = build_video_model({**conf["videonet"], "width_mult": width}, device="cuda",
+                                  generator=torch.Generator().manual_seed(0))
+        with torch.no_grad():
+            got = launches_of(lambda: video(frames), {"K3": SHUFFLE_DW_LAUNCHES},
+                              f"shufflenet width {width}")
+            ref = copy.deepcopy(video).cpu()(frames.cpu())
+        err, scale = float((got.cpu() - ref).abs().max()), float(ref.abs().max())
+        widths[str(width)] = {"max_abs_err": err, "max_abs_ref": scale,
+                              "shape": list(got.shape)}
+        print(f"shufflenet width {width} B=1 float32 vs CPU: max_abs_err {err}, "
+              f"max|ref| {scale}, tol 5e-4*max|ref| = {5e-4 * scale}")
+        if tuple(got.shape) != (1, video.backend_out, VIDEO_FRAMES) or not err <= 5e-4 * scale:
+            fail(f"shufflenet width {width}: {tuple(got.shape)} disagrees with the CPU")
+    paths["shufflenet_widths"] = launch_counts()
+    out["shufflenet_widths"] = widths
+    del video
+
+    # the autoencoder: train_autoencoder.main on mouth tracks, then its
+    # encoder as AEVideoModel behind RTFS-Net-4, serving and in a train step
+    data = write_fit_manifest(os.path.join(root, "ae_data"))
+    exp = os.path.join(root, "autoencoder")
+    args = train_autoencoder.parse_args([
+        "--train-dir", data["tr"], "--valid-dir", data["cv"], "--exp-dir", exp,
+        "--epochs", str(AE_EPOCHS), "--batch-size", str(AE_BATCH), "--device", "cuda"])
+    reset_launch_counts()
+    trained = launches_of(lambda: train_autoencoder.main(args), {}, "train_autoencoder")
+    paths["train_autoencoder"] = launch_counts()
+    history = trained["history"]
+    if (len(history) != AE_EPOCHS or not all(math.isfinite(h["train_loss"])
+                                            and math.isfinite(h["val_loss"]) for h in history)
+            or trained["best_model"] is None
+            or not os.path.exists(os.path.join(exp, "best_k_models.json"))):
+        fail(f"train_autoencoder: history {history}, best {trained['best_model']}")
+    out["train_autoencoder"] = {"B": AE_BATCH, "history": history}
+    conf = zoo_conf({"model_name": "AEVideoModel", "in_channels": 1, "base_channels": 4,
+                     "num_layers": 3, "pretrain": trained["best_model"]}, AE_EMBEDDING)
+    conf["main_args"], conf["audionet"]["video_bn_params"] = {}, AE_VIDEO_BN
+    video = train.build_video_model(conf, device="cuda")
+    saved = torch.load(trained["best_model"], weights_only=True)
+    if any(not torch.equal(video.state_dict()[f"encoder.{k}"].cpu(), t) for k, t in saved.items()):
+        fail("AEVideoModel does not hold the checkpoint's encoder")
+    model = build_model(conf, device="cuda", generator=torch.Generator().manual_seed(0))
+    paths["autoencoder_serving"], outs, out["autoencoder_serving"] = check_serving(
+        "serving from frames (autoencoder)", model, frame_requests_for(AE_SERVE_BATCHES, gen),
+        video)
+    del outs
+
+    # one train step at B=4 with the backbone unfrozen: its parameters move
+    system = System(model, make_optimizer(model.parameters(), **conf["optim"]),
+                    {"train": PITLossWrapper(pairwise_neg_snr),
+                     "val": PITLossWrapper(pairwise_neg_sisdr)},
+                    video_model=video, train_video_model=True)
+    mix, frames = frame_requests_for((TRAIN_BATCHES[0],), gen)[TRAIN_BATCHES[0]]
+    before = {k: t.clone() for k, t in video.state_dict().items()}
+
+    def step():
+        result = system.train_step((mix, mix[:, None], frames),
+                                   generator=torch.Generator(device="cuda").manual_seed(4))
+        loss, gnorm = float(result["loss"]), float(result["grad_norm"])
+        if not (math.isfinite(loss) and math.isfinite(gnorm)):
+            fail(f"autoencoder train step: loss {loss}, grad_norm {gnorm}")
+        return loss
+
+    reset_launch_counts()
+    loss = launches_of(step, {"K2_forward": 64, "K2_backward": 32, "K3": 3 * DW_LAUNCHES},
+                       "autoencoder train step")
+    paths["autoencoder_train"] = launch_counts()
+    still = [k for k, t in video.state_dict().items() if torch.equal(t, before[k])]
+    if still:
+        fail(f"autoencoder train step: AEVideoModel parameters unmoved: {still}")
+    times = host_ms(step, 3)
+    out["autoencoder_train_step"] = {"B": TRAIN_BATCHES[0], "dtype": "float32", "loss": loss,
+                                     "ms_per_step_median": times[1], "ms_per_step_min": times[0],
+                                     "params_moved": len(before)}
+    del system, model, video
+    torch.cuda.empty_cache()
+
+    # find_unused_params at full width: the card's list against the CPU's
+    reset_launch_counts()
+    argv = ["--conf-dir", CONFIG]
+    unused = launches_of(
+        lambda: find_unused_params.main(find_unused_params.parse_args(argv + ["--device",
+                                                                              "cuda"])),
+        {"K2_forward": SRU_LAUNCHES, "K2_backward": SRU_LAUNCHES, "K3": 2 * DW_LAUNCHES},
+        "find_unused_params")
+    paths["find_unused_params"] = launch_counts()
+    on_cpu = find_unused_params.main(find_unused_params.parse_args(argv + ["--device", "cpu"]))
+    print(f"find_unused_params: {len(unused)} unused on the card, {len(on_cpu)} on the CPU")
+    if unused != on_cpu:
+        fail(f"find_unused_params: the card lists {unused}, the CPU {on_cpu}")
+    out["find_unused_params"] = {"unused": len(unused), "names": unused}
+    out["launches"] = paths
+    print("video_zoo " + json.dumps(out))
+    return paths
+
+
 def main():
     import tempfile
 
@@ -2250,10 +2508,10 @@ def main():
     dw = check_dw_conv_kernel()
     direction = check_sru_direction_kernel()
     model, video, requests, frame_requests = serving_setup()
-    launches, _ = check_serving("serving", model, requests)
+    launches, _, _ = check_serving("serving", model, requests)
     check_bench_point(model)
-    frame_launches, frame_outs = check_serving("serving from frames", model, frame_requests,
-                                               video)
+    frame_launches, frame_outs, _ = check_serving("serving from frames", model,
+                                                  frame_requests, video)
     direction_launches = check_direction_pass(model, video, frame_requests[16],
                                               frame_outs[16])
     del frame_outs
@@ -2275,10 +2533,13 @@ def main():
         export_launches = check_export(root, exp_dir, smi)
         torch.cuda.empty_cache()
         ctcnet_launches = check_ctcnet(root, smi)
+        torch.cuda.empty_cache()
+        zoo_launches = check_video_zoo(root, smi)
     by_path = {"serving": launches, "serving_from_frames": frame_launches,
                "per_direction": direction_launches, "train": train_launches,
                "fit": fit_launches, "evaluate": eval_launches, "separate": separate_launches,
-               "export": export_launches, "ctcnet": ctcnet_launches}
+               "export": export_launches, "ctcnet": ctcnet_launches,
+               **{f"video_zoo_{path}": counts for path, counts in zoo_launches.items()}}
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     # no single PyTorch call computes an SRU recurrence or its backward;

@@ -2,8 +2,10 @@
 a case-insensitive ``get``)."""
 from __future__ import annotations
 
+from .autoencoder import AE, DecoderAE, EncoderAE
 from .frcnn_videomodel import AEVideoModel, FRCNNVideoModel
 from .resnet import BasicBlock, ResNet
+from .shufflenetv2 import STAGE_OUT_CHANNELS, ShuffleNetV2Trunk
 
 _REGISTRY = {
     "frcnnvideomodel": FRCNNVideoModel,

@@ -179,6 +179,15 @@ def adaptive_avg_pool(x: torch.Tensor, output_size: Sequence[int]) -> torch.Tens
     return pool(x, output_size)
 
 
+def avg_pool(x: torch.Tensor, kernel: Sequence[int], stride: Sequence[int] | None = None,
+             ceil_mode: bool = False, count_include_pad: bool = True) -> torch.Tensor:
+    """torch ``F.avg_pool2d`` (no padding) on (B, C, H, W)
+    (``rtfs_net_tpu/ops/conv.py:avg_pool``)."""
+    kernel = tuple(kernel)
+    return F.avg_pool2d(x, kernel, tuple(stride) if stride is not None else kernel,
+                        ceil_mode=ceil_mode, count_include_pad=count_include_pad)
+
+
 def max_pool(x: torch.Tensor, kernel: Sequence[int], stride: Sequence[int],
              padding: Sequence[int]) -> torch.Tensor:
     """torch ``F.max_pool{1,2,3}d`` (symmetric padding with -inf) on

@@ -59,6 +59,20 @@ class LayerNormalization4D(nn.Module):
         return (y * self.gamma.float() + self.beta.float()).to(x.dtype)
 
 
+class InstanceNorm2d(nn.InstanceNorm2d):
+    """``nn.InstanceNorm2d(C, affine=True)`` in float32: each sample's
+    channels normalized over H, W (biased variance), then the per-channel
+    affine ``weight``/``bias`` (the JAX package's ``scale``/``bias``,
+    ``rtfs_net_tpu/models/videomodels/autoencoder.py:14-28``)."""
+
+    def __init__(self, num_features: int, eps: float = EPS):
+        super().__init__(num_features, eps=eps, affine=True)
+
+    def forward(self, x):
+        return F.instance_norm(x.float(), weight=self.weight.float(), bias=self.bias.float(),
+                               eps=self.eps).to(x.dtype)
+
+
 class _FloatBatchNorm:
     def forward(self, x):
         return super().forward(x.float()).to(x.dtype)

@@ -14,10 +14,13 @@ them under the reference torch names the port uses. Besides renaming:
 Each mapper takes (reader, out, src, path): ``src`` is the torch key
 prefix written, ``path`` the JAX variable path read.
 
-``video_state_dict_from_jax`` does the same for the FRCNN video model (the
-inverse of ``rtfs_net_tpu/utils/torch_convert.py:_video_key_map``), and
-``load_video_backbone`` loads a reference state dict of that model into
-the port's.
+``video_state_dict_from_jax`` does the same for the video models: the
+FRCNN video model with either trunk (the inverse of
+``rtfs_net_tpu/utils/torch_convert.py:_video_key_map`` and
+``_shufflenet_key_map``) and ``AEVideoModel``; ``ae_state_dict_from_jax``
+for the whole lip autoencoder. ``load_video_backbone`` loads a reference
+state dict of the FRCNN model, or the encoder state dict that
+``train_autoencoder`` writes, into the port's.
 """
 from __future__ import annotations
 
@@ -25,6 +28,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..models.videomodels import AEVideoModel
 
 Path = Tuple[str, ...]
 
@@ -336,13 +341,14 @@ def _conv_bn(r: Reader, out, conv_key: str, bn_key: str, path: Path):
     norm(r, out, bn_key, path + ("bn",))
 
 
-def video_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
-    """JAX ``FRCNNVideoModel`` variables (resnet backbone) -> the port
-    model's ``state_dict``, under the reference's names."""
-    r, out = Reader(variables), {}
-    out["frontend3D.0.weight"] = r.get(("frontend_conv", "weight"))
-    norm(r, out, "frontend3D.1", ("frontend_bn",))
-    _alpha(r, out, "frontend3D.2.weight", ("frontend_prelu",))
+# ShuffleNet block sub-module -> (branch, Sequential index of its conv, of
+# its BatchNorm) (``_shufflenet_key_map``)
+_SHUFFLE_BRANCHES = {"b1_dw": ("banch1", 0, 1), "b1_pwl": ("banch1", 2, 3),
+                     "b2_pw": ("banch2", 0, 1), "b2_dw": ("banch2", 3, 4),
+                     "b2_pwl": ("banch2", 5, 6)}
+
+
+def _resnet_trunk(r: Reader, out):
     for name in sorted(r.node(("trunk",))):  # layer{1-4}_{block}
         layer, block = name[len("layer"):].split("_")
         pre, path = f"trunk.layer{layer}.{block}", ("trunk", name)
@@ -353,18 +359,70 @@ def video_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
         if r.node(path + ("downsample",)) is not None:
             _conv_bn(r, out, f"{pre}.downsample.0", f"{pre}.downsample.1",
                      path + ("downsample",))
+
+
+def _shufflenet_trunk(r: Reader, out):
+    for name in r.node(("trunk",)):  # features{idx}, conv_last
+        path = ("trunk", name)
+        if name == "conv_last":
+            _conv_bn(r, out, "trunk.1.0", "trunk.1.1", path)
+            continue
+        pre = f"trunk.0.{name[len('features'):]}"
+        for sub in r.node(path):
+            branch, conv, bn = _SHUFFLE_BRANCHES[sub]
+            _conv_bn(r, out, f"{pre}.{branch}.{conv}", f"{pre}.{branch}.{bn}", path + (sub,))
+
+
+def ae_blocks(r: Reader, out, src: str, path: Path):
+    """EncoderAE or DecoderAE: ``layer{i}.conv`` and ``layer{i}.norm`` (JAX
+    ``scale`` -> ``weight``)."""
+    for name in r.node(path):
+        pre = _k(src, name)
+        _leaf(r, out, f"{pre}.conv", path + (name, "conv"))
+        out[f"{pre}.norm.weight"] = r.get(path + (name, "norm", "scale"))
+        out[f"{pre}.norm.bias"] = r.get(path + (name, "norm", "bias"))
+
+
+def video_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
+    """JAX ``FRCNNVideoModel`` variables (resnet or shufflenet trunk) or
+    ``AEVideoModel`` variables -> the port model's ``state_dict``, under
+    the reference's names."""
+    r, out = Reader(variables), {}
+    if r.node(("encoder",)) is not None:
+        ae_blocks(r, out, "encoder", ("encoder",))
+        return to_tensors(out)
+    out["frontend3D.0.weight"] = r.get(("frontend_conv", "weight"))
+    norm(r, out, "frontend3D.1", ("frontend_bn",))
+    _alpha(r, out, "frontend3D.2.weight", ("frontend_prelu",))
+    if r.node(("trunk", "conv_last")) is not None:
+        _shufflenet_trunk(r, out)
+    else:
+        _resnet_trunk(r, out)
+    return to_tensors(out)
+
+
+def ae_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
+    """JAX ``AE`` variables -> the port ``AE``'s ``state_dict``."""
+    r, out = Reader(variables), {}
+    for half in ("encoder", "decoder"):
+        ae_blocks(r, out, half, (half,))
     return to_tensors(out)
 
 
 def load_video_backbone(model: torch.nn.Module, state_dict) -> torch.nn.Module:
     """Load a reference ``FRCNNVideoModel`` state dict (the mapping itself,
-    or a checkpoint that holds it under ``model_state_dict``) into the port's
-    model. The lip-reading head's ``tcn*`` keys and the ``num_batches_tracked``
-    counters are skipped, as the reference loader and
-    ``torch_convert.convert_video_backbone`` skip them; any other key the
+    or a checkpoint that holds it under ``model_state_dict``), with either
+    trunk, into the port's model; or, into an ``AEVideoModel``, the
+    encoder's own state dict (``layer{i}.*``, as ``train_autoencoder``
+    writes it) or the whole model's. The lip-reading head's ``tcn*`` keys and
+    the ``num_batches_tracked`` counters are skipped, as the reference loader
+    and ``torch_convert.convert_video_backbone`` skip them; any other key the
     model lacks, a shape that differs, or a model tensor left without a
     value raises."""
     state_dict = state_dict.get("model_state_dict", state_dict)
+    if isinstance(model, AEVideoModel) and not any(k.startswith("encoder.")
+                                                   for k in state_dict):
+        state_dict = {f"encoder.{k}": v for k, v in state_dict.items()}
     own = model.state_dict()
     picked = {}
     for key, value in state_dict.items():

@@ -48,19 +48,23 @@ def test_new_modules_are_covered():
             "utils/flops.py", "utils/profiling.py", "evaluation.py", "test.py", "separate.py",
             "local_test.py", "import_checkpoint.py", "export.py", "export_serving.py",
             "ops/kernels/registry.py", "models/separators/frcnn.py",
-            "models/separators/repeats.py"} <= names
+            "models/separators/repeats.py", "models/videomodels/shufflenetv2.py",
+            "models/videomodels/autoencoder.py", "train_autoencoder.py",
+            "find_unused_params.py"} <= names
 
 
 def test_loader_workers_import_no_torch():
     """The data loader's spawned workers import the dataset's package and
     the entry point that started them (the main module: training,
-    evaluation, or the smoke run's fake dataset); none may load torch, which
-    would cost each worker seconds and could open a CUDA context."""
+    evaluation, the smoke run's fake dataset, or the autoencoder's mouth
+    frames); none may load torch, which would cost each worker seconds and
+    could open a CUDA context."""
     import subprocess
     import sys
 
     code = ("import sys, rtfs_net_tpu_torch.train, rtfs_net_tpu_torch.test, "
-            "rtfs_net_tpu_torch.local_test, rtfs_net_tpu_torch.datas; "
+            "rtfs_net_tpu_torch.local_test, rtfs_net_tpu_torch.datas, "
+            "rtfs_net_tpu_torch.train_autoencoder; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in ('torch', 'jax')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=60, check=True).stdout

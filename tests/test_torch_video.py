@@ -138,18 +138,30 @@ def test_load_video_backbone_on_a_reference_state_dict():
 
 
 def test_registry_and_unported_backbones(monkeypatch):
+    """The registry names both video models; each backbone builds (every one
+    is ported now), an unknown one raises; and the models run on the card
+    unless the caller asks for the CPU. Test name kept from when ShuffleNet
+    and AEVideoModel raised ``NotImplementedError``."""
     assert videomodels.get("frcnnVideoModel") is videomodels.FRCNNVideoModel
+    assert videomodels.get("AEVIDEOMODEL") is videomodels.AEVideoModel
     assert videomodels.get(None) is None
     with pytest.raises(ValueError):
         videomodels.get("nope")
-    with pytest.raises(NotImplementedError):
-        build_video_model({**VIDEONET, "backbone_type": "shufflenet"}, device="cpu")
-    with pytest.raises(NotImplementedError):
-        build_video_model({"model_name": "AEVideoModel"}, device="cpu")
+    shuffle = build_video_model({**VIDEONET, "backbone_type": "shufflenet",
+                                 "width_mult": 2.0}, device="cpu")
+    assert isinstance(shuffle.trunk, videomodels.ShuffleNetV2Trunk)
+    assert (shuffle.frontend_nout, shuffle.backend_out) == (24, 2048)
+    resnet = _video_model()
+    assert (resnet.frontend_nout, resnet.backend_out) == (64, 512)
+    ae = build_video_model({"model_name": "AEVideoModel", "base_channels": 4}, device="cpu")
+    assert isinstance(ae.encoder, videomodels.EncoderAE) and ae.out_channels == 16
+    with pytest.raises(ValueError, match="backbone_type"):
+        build_video_model({**VIDEONET, "backbone_type": "mobilenet"}, device="cpu")
     # like build_model, it runs on the card unless the caller asks for the CPU
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        build_video_model(VIDEONET)
+    for conf in (VIDEONET, {"model_name": "AEVideoModel"}):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build_video_model(conf)
 
 
 def test_conv3d_max_pool_and_per_channel_prelu(rng):
