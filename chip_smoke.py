@@ -169,7 +169,29 @@ Phases (any failure exits non-zero before the final line):
    B = 4 with ``train_video_model`` (K2 64 + 32, K3 120) that moves every
    AE parameter. ``find_unused_params.main`` at full width on the card (K2
    32 + 32, K3 80) lists what it lists on the CPU. A ``video_zoo`` line.
-20. a ``{"kernels": [...]}`` line (with each kernel's launches on every
+20. bench: the port's benchmark, ``python -m rtfs_net_tpu_torch.bench``, in
+   a process of its own (the JAX package's ``bench.py`` point: serving
+   RTFS-Net-4 from (128, 512, 50) embeddings in bfloat16, and
+   ``System.train_step`` in bfloat16 at B = 4 and 16; one warm-up, then
+   the minimum of 6 calls on distinct inputs): its last line has exactly
+   ``bench.py``'s nine keys, every value finite, its serving time per
+   utterance within 15% of phase 6's benchmark point in this run; K1 32
+   and K3 40 launches per serving call, K2 64 + 32 and K3 120 per step,
+   nothing else. A ``bench`` line, then the bench's own line.
+21. parallel: NCCL over ``torch.cuda.device_count()`` ranks, meeting
+   through a file (one card: this process is rank 0 of 1): a DDP +
+   SyncBatchNorm train step of RTFS-Net-4 at full width (B = 4, float32,
+   SGD: the card's plain step is itself nondeterministic at ~1e-7·max|g|,
+   which AdamW's first update magnifies) against the plain
+   ``System.train_step`` on the same batch and seed under cuDNN's
+   deterministic algorithms: loss, parameters and BatchNorm buffers within
+   1e-6, gradients within 1e-6·max|g|; K2 64 + 32 and K3 120 launches; a
+   second DDP step; ``dryrun.dryrun_multichip`` over the ranks (one step
+   from raw frames with the video model training, then the sharded
+   evaluation); ``train.main`` for one epoch on phase 14's manifest,
+   data-parallel. A ``parallel`` line with the card count (a run over two
+   or more cards is still to come).
+22. a ``{"kernels": [...]}`` line (with each kernel's launches on every
    path), then ``{"ok": true, "device": {...}}`` last.
 
 Every comparison on the card runs with TF32 off (cuDNN convolutions and
@@ -250,6 +272,14 @@ SHUFFLE_DW_LAUNCHES = sum(n for n, _ in SHUFFLE_DW.values())  # 13 per video for
 SHUFFLE_PLANE_BATCH, PLANE_TIMINGS = 4, 6
 AE_EPOCHS, AE_BATCH, AE_SERVE_BATCHES, AE_EMBEDDING = 2, 4, (1, 4), 1936
 AE_VIDEO_BN = {"kernel_size": 1, "out_chan": 512}
+# the bench phase: its run's limit in seconds and how far its serving time
+# may lie from check_bench_point's; each call's launches: a serving call's
+# (the float32 sanity slice, the warm-up and the timed calls) and a train
+# step's (the warm-up and the timed steps)
+BENCH_TIMEOUT_S, BENCH_SERVING_RTOL, BENCH_TIMED = 600, 0.15, 6
+# the parallel phase: the global batch of the DDP step, and its tolerance
+# against the plain step (at world size 1 the two are the same arithmetic)
+PARALLEL_BATCH, PARALLEL_TOL = 4, 1e-6
 CHANNELS = 64  # TDANet hid_chan: the depthwise convs' channels
 DW_PLANES = {(251, 129): 3, (125, 64): 7}  # K3 launches per TDANet block, by (T, F)
 DW_KERNEL, DW_PADS = (4, 4), ((1, 2), (1, 2))
@@ -340,10 +370,9 @@ def kernel_modules():
 
 def launch_counts():
     """Every wrapper's count of kernel launches, by kernel."""
-    ksru, ktrain, kdw, kdir = kernel_modules()
-    return {"K1": ksru.launches, "K2_forward": ktrain.forward_launches,
-            "K2_backward": ktrain.backward_launches, "K3": kdw.launches,
-            "K4": kdir.launches}
+    from rtfs_net_tpu_torch.bench import launch_counts
+
+    return launch_counts()
 
 
 def reset_launch_counts():
@@ -936,7 +965,7 @@ def check_bench_point(model):
     """``bench.py``'s serving point: RTFS-Net-4 from (128, 512, 50) lip
     embeddings in bfloat16, one warm-up call, then ``BENCH_CALLS`` timed
     calls, each on its own inputs (``utils/profiling.py:timed``); every call
-    launches K1 32 and K3 40 times."""
+    launches K1 32 and K3 40 times. Returns the minimum ms per utterance."""
     import torch
 
     from rtfs_net_tpu_torch.utils.separator import separate
@@ -965,6 +994,7 @@ def check_bench_point(model):
         "ms_per_utt_min": times[0] / BIG_BATCH, "utt_per_s": BIG_BATCH / times[0] * 1e3,
         "launches_per_forward": {"K1": 32, "K3": DW_LAUNCHES},
         "peak_mem_GiB": torch.cuda.max_memory_allocated() / 2 ** 30}))
+    return times[0] / BIG_BATCH
 
 
 def check_direction_pass(model, video, request, scan_out):
@@ -1256,8 +1286,9 @@ def rtfs4_conf(dropout=None):
     return conf
 
 
-def make_system(model, dtype, config=None):
-    """``System`` with the optimizer of ``config`` (default: RTFS-Net-4's)."""
+def make_system(model, dtype, config=None, optimizer=None):
+    """``System`` with the optimizer of ``config`` (default: RTFS-Net-4's),
+    or the one named by ``optimizer`` with that config's settings."""
     import torch
 
     from rtfs_net_tpu_torch.losses import PITLossWrapper, pairwise_neg_sisdr, pairwise_neg_snr
@@ -1267,6 +1298,8 @@ def make_system(model, dtype, config=None):
 
     with open(config or CONFIG) as f:
         optim = yaml.safe_load(f)["optim"]
+    if optimizer is not None:
+        optim["optimizer"] = optimizer
     return System(model, make_optimizer(model.parameters(), **optim),
                   {"train": PITLossWrapper(pairwise_neg_snr),
                    "val": PITLossWrapper(pairwise_neg_sisdr)},
@@ -1592,8 +1625,8 @@ def check_fit(root):
     conf = train.parse_conf(argv + ["--epochs", str(FIT_EPOCHS + 1)])
     build_dataloaders = train.build_dataloaders
 
-    def preempting(c):
-        train_loader, val_loader = build_dataloaders(c)
+    def preempting(c, *shard):
+        train_loader, val_loader = build_dataloaders(c, *shard)
         return PreemptingLoader(train_loader, FIT_PREEMPT), val_loader
 
     train.build_dataloaders = preempting
@@ -2471,6 +2504,191 @@ def check_video_zoo(root, smi):
     return paths
 
 
+def check_bench(bench_point_ms_per_utt):
+    """The port's benchmark, ``python -m rtfs_net_tpu_torch.bench``, in a
+    process of its own: its last line has exactly ``bench.py``'s keys, every
+    value finite, and its serving time per utterance lies within
+    ``BENCH_SERVING_RTOL`` of ``check_bench_point``'s in this run; its
+    launches are K1 32 and K3 40 per serving call, K2 64 + 32 and K3 120
+    per train step, and nothing else. Prints the bench's line; returns its
+    launches by kernel."""
+    import torch
+
+    from rtfs_net_tpu_torch import bench
+
+    torch.cuda.empty_cache()  # the bench's own process needs the card's memory
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "rtfs_net_tpu_torch.bench"], cwd=HERE,
+                          capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    if proc.returncode:
+        fail(f"bench: exit {proc.returncode}: {proc.stderr[-3000:]}")
+    lines = proc.stdout.strip().splitlines()
+    result = json.loads(lines[-1])
+    launches = json.loads(next(line for line in reversed(lines)
+                               if line.startswith("launches "))[len("launches "):])
+    if list(result) != list(bench.KEYS):
+        fail(f"bench: keys {list(result)}, want {list(bench.KEYS)}")
+    if not all(math.isfinite(v) for k, v in result.items() if k not in ("metric", "unit")):
+        fail(f"bench: non-finite values {result}")
+    step = {"K2_forward": 64, "K2_backward": 32, "K3": 3 * DW_LAUNCHES}
+    per_call = {"serving": ({"K1": SRU_LAUNCHES, "K3": DW_LAUNCHES}, 2 + BENCH_TIMED),
+                "train_b4": (step, 1 + BENCH_TIMED), "train_b16": (step, 1 + BENCH_TIMED)}
+    for phase, (counts, calls) in per_call.items():
+        want = {k: counts.get(k, 0) * calls for k in launch_counts()}
+        if launches.get(phase) != want:
+            fail(f"bench {phase}: launches {launches.get(phase)}, want {want}")
+    ratio = result["inference_ms_per_utt"] / bench_point_ms_per_utt
+    print("bench " + json.dumps({
+        "wall_s": wall, "check_bench_point_ms_per_utt": bench_point_ms_per_utt,
+        "serving_ratio": ratio, "serving_rtol": BENCH_SERVING_RTOL, "launches": launches}))
+    print("bench line " + lines[-1])
+    if abs(ratio - 1) > BENCH_SERVING_RTOL:
+        fail(f"bench: serving {result['inference_ms_per_utt']} ms/utt, check_bench_point "
+             f"{bench_point_ms_per_utt} ms/utt")
+    return {k: sum(counts[k] for counts in launches.values()) for k in launch_counts()}
+
+
+def parallel_rank(root):
+    """The parallel phase on this rank of the process group: a DDP +
+    SyncBatchNorm train step of RTFS-Net-4 at full width (float32, SGD
+    with the config's lr and weight decay, dropout as configured) on this
+    rank's shard of a global batch of ``PARALLEL_BATCH``, against the plain
+    ``System.train_step`` on the whole batch from the same weights and
+    generator seed, both under cuDNN's deterministic algorithms: loss,
+    parameters and BatchNorm buffers within ``PARALLEL_TOL``, gradients
+    within ``PARALLEL_TOL``·max|g|; K2 64 + 32 and K3 120 launches. (Not
+    AdamW: two plain steps on the card already differ by ~1e-7·max|g| in
+    their gradients, PyTorch's ``adaptive_avg_pool2d`` backward having no
+    deterministic implementation, and AdamW's first update, lr·g/(|g| +
+    eps), turns that into up to ~3e-4 where |g| is near zero; both spreads
+    are measured and printed.) A second DDP step (DDP is built without
+    ``find_unused_parameters`` and raises in it if the first left a
+    parameter without gradient); then ``dryrun_multichip`` over the group;
+    then ``train.main`` for one epoch on the fit phase's manifest under
+    ``root`` (global batch 4), training data-parallel through the trainer
+    (every step K2 64 + 32 and K3 120, every validation batch K1 32 and K3
+    40). Returns the comparison, the dry run's and the epoch's results and
+    the launches from the DDP steps on (the plain steps' not counted)."""
+    import torch
+    import torch.distributed as dist
+
+    from rtfs_net_tpu_torch import train
+    from rtfs_net_tpu_torch.dryrun import dryrun_multichip
+    from rtfs_net_tpu_torch.models import build_model
+    from rtfs_net_tpu_torch.parallel import make_mesh, make_parallel_train_step, shard_batch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        base = build_model(rtfs4_conf(), device="cuda",
+                           generator=torch.Generator().manual_seed(0))
+        batch = train_batch(PARALLEL_BATCH, torch.Generator(device="cuda").manual_seed(12))
+
+        def worst(a, b):
+            return max(float((x.double() - y.double()).abs().max()) for x, y in zip(a, b))
+
+        def stepped(system):
+            out = system.train_step(batch, torch.Generator(device="cuda").manual_seed(13))
+            return system, out, list(system.model.parameters())
+
+        plain, want, plain_params = stepped(make_system(copy.deepcopy(base), torch.float32,
+                                                        optimizer="sgd"))
+        # the plain step's own run-to-run spread: gradients (SGD) and, through
+        # AdamW's first update, parameters
+        _, _, again = stepped(make_system(copy.deepcopy(base), torch.float32, optimizer="sgd"))
+        _, _, adam0 = stepped(make_system(copy.deepcopy(base), torch.float32))
+        _, _, adam1 = stepped(make_system(copy.deepcopy(base), torch.float32))
+        noise = {"plain_vs_plain_grad_diff": worst([p.grad for p in again],
+                                                   [p.grad for p in plain_params]),
+                 "adamw_plain_vs_plain_param_diff": worst([p.detach() for p in adam0],
+                                                          [p.detach() for p in adam1])}
+        del again, adam0, adam1
+        system = make_system(copy.deepcopy(base), torch.float32, optimizer="sgd")
+        mesh = make_mesh(batch_size=PARALLEL_BATCH)
+        step = make_parallel_train_step(system, mesh)
+        local = shard_batch(batch, mesh)
+        reset_launch_counts()
+        step_launches = {"K2_forward": 64, "K2_backward": 32, "K3": 3 * DW_LAUNCHES}
+        got = launches_of(lambda: step(local, torch.Generator(device="cuda").manual_seed(13)),
+                          step_launches, "parallel: DDP step")
+        sync_bn = sum(type(m).__name__ == "SyncBatchNorm" for m in system.model.modules())
+        if type(system.replica).__name__ != "DistributedDataParallel" or not sync_bn:
+            fail(f"parallel: replica {type(system.replica).__name__}, {sync_bn} SyncBatchNorms")
+
+        params = list(system.model.parameters())
+        compared = {
+            "loss": float(got["loss"]), "loss_plain": float(want["loss"]),
+            "max_param_diff": worst([p.detach() for p in params],
+                                    [p.detach() for p in plain_params]),
+            "max_buffer_diff": worst(list(system.model.buffers()),
+                                     list(plain.model.buffers())),
+            "max_grad_diff": worst([p.grad for p in params], [p.grad for p in plain_params]),
+            "max_abs_grad": max(float(p.grad.abs().max()) for p in plain_params),
+            "sync_batchnorms": sync_bn, "mesh": [mesh.size, mesh.index], **noise}
+        if not (abs(compared["loss"] - compared["loss_plain"])
+                <= PARALLEL_TOL * abs(compared["loss_plain"])
+                and compared["max_param_diff"] <= PARALLEL_TOL
+                and compared["max_buffer_diff"] <= PARALLEL_TOL
+                and compared["max_grad_diff"] <= PARALLEL_TOL * compared["max_abs_grad"]):
+            fail(f"parallel: the DDP step differs from the plain step: {compared}")
+        launches_of(lambda: step(local, torch.Generator(device="cuda").manual_seed(14)),
+                    step_launches, "parallel: second DDP step")
+        del base, plain, system, step
+        dry = dryrun_multichip(dist.get_world_size())
+
+        argv = ["--conf-dir", CONFIG, "--train_dir", os.path.join(root, "tr"),
+                "--valid_dir", os.path.join(root, "cv"),
+                "--path", os.path.join(root, "ddp_log"), "--batch_size", str(FIT_BATCH),
+                "--num_workers", "2", "--device", "cuda", "--pretrain", "", "--epochs", "1"]
+        with FitWatch() as watch:
+            trainer = train.main(train.parse_conf(argv))
+        watch.check_launches("parallel fit")
+        epoch = {"steps": trainer.system.step, "mesh": [trainer.mesh.size, trainer.mesh.index],
+                 "replica": type(trainer.system.replica).__name__,
+                 "history": trainer.history}
+        if trainer.system.step != FIT_ITEMS["tr"] // FIT_BATCH or \
+                epoch["replica"] != "DistributedDataParallel" or not all(
+                    math.isfinite(h[k]) for h in trainer.history
+                    for k in ("train_loss", "val_loss")):
+            fail(f"parallel fit: {epoch}")
+        return {"ddp_step": compared, "dryrun": dry, "fit": epoch, "launches": launch_counts()}
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def check_parallel(root):
+    """The data-parallel path over ``torch.cuda.device_count()`` ranks, NCCL
+    meeting through a file under ``root``: with one card this process is
+    rank 0 of 1 (and no collective crosses a card); with more, every rank is
+    a process of its own (``parallel.launch``). Runs ``parallel_rank`` on
+    each and prints a ``parallel`` line. Returns rank 0's launches."""
+    import torch
+
+    from rtfs_net_tpu_torch import parallel
+
+    cards = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    if cards == 1:
+        parallel.initialize("cuda", init_method="file://" + os.path.join(root, "rendezvous"),
+                            world_size=1, rank=0)
+        try:
+            results = [parallel_rank(root)]
+        finally:
+            parallel.shutdown()
+    else:
+        results = parallel.launch(parallel_rank, cards, (root,), device="cuda")
+    print("parallel " + json.dumps({
+        "cards": cards, "world_size": len(results), "backend": "nccl",
+        "wall_s": time.perf_counter() - t0, "ddp_step": results[0]["ddp_step"],
+        "tolerance": PARALLEL_TOL, "dryrun": results[0]["dryrun"], "fit": results[0]["fit"],
+        "launches": results[0]["launches"],
+        "still_to_come": "a data-parallel run over two or more cards" if cards == 1 else None}))
+    return results[0]["launches"]
+
+
 def main():
     import tempfile
 
@@ -2509,7 +2727,7 @@ def main():
     direction = check_sru_direction_kernel()
     model, video, requests, frame_requests = serving_setup()
     launches, _, _ = check_serving("serving", model, requests)
-    check_bench_point(model)
+    bench_point = check_bench_point(model)
     frame_launches, frame_outs, _ = check_serving("serving from frames", model,
                                                   frame_requests, video)
     direction_launches = check_direction_pass(model, video, frame_requests[16],
@@ -2535,11 +2753,16 @@ def main():
         ctcnet_launches = check_ctcnet(root, smi)
         torch.cuda.empty_cache()
         zoo_launches = check_video_zoo(root, smi)
+        torch.cuda.empty_cache()
+        bench_launches = check_bench(bench_point)
+        torch.cuda.empty_cache()
+        parallel_launches = check_parallel(root)
     by_path = {"serving": launches, "serving_from_frames": frame_launches,
                "per_direction": direction_launches, "train": train_launches,
                "fit": fit_launches, "evaluate": eval_launches, "separate": separate_launches,
                "export": export_launches, "ctcnet": ctcnet_launches,
-               **{f"video_zoo_{path}": counts for path, counts in zoo_launches.items()}}
+               **{f"video_zoo_{path}": counts for path, counts in zoo_launches.items()},
+               "bench": bench_launches, "parallel": parallel_launches}
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     # no single PyTorch call computes an SRU recurrence or its backward;

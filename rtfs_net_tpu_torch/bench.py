@@ -1,0 +1,147 @@
+"""The port's benchmark on one card (the JAX package's ``bench.py``):
+
+    python -m rtfs_net_tpu_torch.bench
+
+Prints, as its last line, one JSON object with ``bench.py``'s keys
+(``bench.py:121-131``):
+
+* serving: RTFS-Net-4 (``configs/lrs2_RTFSNet_4_layer.yaml``, weights from
+  seed 0) separating 2 s mixtures given precomputed (128, 512, 50) lip
+  embeddings in bfloat16, through ``utils.separator.separate``: a pool of
+  4 mixtures, call i adding i·1e-6 so that no two calls share inputs, the
+  embeddings scaled by 0.1 (``bench.py:47-54,71-78``), after a check that
+  a float32 slice of 8 gives finite output; ``value`` is utterances per
+  second, ``vs_baseline`` the reference's published 57.8 ms per utterance
+  over ours;
+* training: ``System.train_step`` with the config's AdamW in bfloat16 at
+  B = 4 and B = 16, the mixture as its own target (``bench.py:83-118``),
+  each batch size from the seed weights with the training state carried
+  from step to step.
+
+Each is timed by ``utils.profiling.timed``: one warm-up call, then the
+minimum of 6 calls on distinct inputs, each fenced by a
+``torch.cuda.synchronize()`` and timed by CUDA events. The line before the
+last gives each phase's kernel launches (K1-K4's wrappers' counts). It
+runs on a card only: without one it exits non-zero and prints no result.
+"""
+from __future__ import annotations
+
+import copy
+import json
+import math
+import os
+import sys
+
+import numpy as np
+import torch
+
+CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
+                      "lrs2_RTFSNet_4_layer.yaml")
+BASELINE_MS_PER_UTT = 57.8  # the reference paper's RTFS-Net-4 inference time
+KEYS = ("metric", "value", "unit", "vs_baseline", "inference_ms_per_utt",
+        "train_ms_per_step_b4", "train_utt_per_s_per_chip", "train_ms_per_step_b16",
+        "train_utt_per_s_per_chip_b16")
+
+
+def launch_counts():
+    """Every kernel wrapper's count of launches."""
+    from .ops.kernels import dw_conv, sru, sru_direction, sru_train
+
+    return {"K1": sru.launches, "K2_forward": sru_train.forward_launches,
+            "K2_backward": sru_train.backward_launches, "K3": dw_conv.launches,
+            "K4": sru_direction.launches}
+
+
+def _launched(fn):
+    before = launch_counts()
+    out = fn()
+    return out, {k: n - before[k] for k, n in launch_counts().items()}
+
+
+def run(conf, device="cuda", batch: int = 128, samples: int = 32000,
+        train_batches=(4, 16), iters: int = 6):
+    """The benchmark of ``conf`` (a YAML config) on ``device``: returns the
+    result (``KEYS``) and the kernel launches of each phase."""
+    from .losses import PITLossWrapper, pairwise_neg_sisdr, pairwise_neg_snr
+    from .models import build_model, resolve_device
+    from .system import System, make_optimizer
+    from .utils.profiling import timed
+    from .utils.separator import separate
+
+    device = resolve_device(device)
+    audionet = conf["audionet"]
+    model = build_model(audionet, device=device)
+    rng = np.random.default_rng(0)
+    mix_pool = [torch.from_numpy(rng.standard_normal((batch, samples)).astype(np.float32))
+                .to(device) for _ in range(4)]
+    frames = int(round(samples / 16000 * 25))
+    mouth = torch.from_numpy(
+        rng.standard_normal((batch, audionet["pretrained_vout_chan"], frames))
+        .astype(np.float32) * 0.1).to(device)
+
+    def serve(m):
+        return separate(model, m, mouth, device=device, dtype=torch.bfloat16)
+
+    def serving():
+        # correctness sanity on a small float32 slice; the timed calls run
+        # bfloat16 at the full serving batch
+        out = separate(model, mix_pool[0][:8], mouth[:8], device=device)
+        if not bool(torch.isfinite(out).all()):
+            raise RuntimeError("bench: non-finite output")
+        return timed(serve, lambda i: (mix_pool[i % len(mix_pool)] + float(i) * 1e-6,),
+                     iters=iters)["min_ms"]
+
+    serve_ms, launches = _launched(serving)
+    launches = {"serving": launches}
+
+    train_ms = {}
+    for B in train_batches:
+        trained = copy.deepcopy(model)
+        system = System(trained, make_optimizer(trained.parameters(), **conf["optim"]),
+                        {"train": PITLossWrapper(pairwise_neg_snr),
+                         "val": PITLossWrapper(pairwise_neg_sisdr)},
+                        compute_dtype=torch.bfloat16)
+        generator = torch.Generator(device=device).manual_seed(1)
+        tmouth = mouth[:B]
+
+        def step(m):
+            return system.train_step((m, m[:, None], tmouth), generator)["loss"]
+
+        train_ms[B], launches[f"train_b{B}"] = _launched(lambda: timed(
+            step, lambda i: (mix_pool[i % len(mix_pool)][:B] + float(i) * 1e-6,),
+            iters=iters)["min_ms"])
+
+    ms_per_utt = serve_ms / batch
+    b4, b16 = train_ms[train_batches[0]], train_ms[train_batches[-1]]
+    result = {
+        "metric": "rtfsnet4_bf16_2s_utterances_per_sec_per_chip",
+        "value": round(batch / serve_ms * 1e3, 2),
+        "unit": "utt/s",
+        "vs_baseline": round(BASELINE_MS_PER_UTT / ms_per_utt, 2),
+        "inference_ms_per_utt": round(ms_per_utt, 3),
+        "train_ms_per_step_b4": round(b4, 1),
+        "train_utt_per_s_per_chip": round(train_batches[0] / (b4 / 1e3), 2),
+        "train_ms_per_step_b16": round(b16, 1),
+        "train_utt_per_s_per_chip_b16": round(train_batches[-1] / (b16 / 1e3), 2),
+    }
+    return result, launches
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("bench: no CUDA device; the benchmark runs on a card only", file=sys.stderr)
+        return 2
+    import yaml
+
+    with open(CONFIG) as f:
+        conf = yaml.safe_load(f)
+    result, launches = run(conf)
+    if not all(math.isfinite(v) for v in result.values() if not isinstance(v, str)):
+        raise RuntimeError(f"bench: non-finite result {result}")
+    print("launches " + json.dumps(launches))
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

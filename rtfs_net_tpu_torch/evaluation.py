@@ -12,8 +12,15 @@ reference ``test.py:127-141`` evaluates batched at ``batch_size*2``):
 * scoring (PIT reorder, SI-SNR/SDR/PESQ/STOI, wav examples) runs in a
   host thread pool while the model's device computes the next batch.
 
-The forward runs on the model's device under ``torch.inference_mode()``;
-one device (data parallel is a later slice).
+The forward runs on the model's device under ``torch.inference_mode()``.
+Under a process group every batch is sharded over the ranks of
+``parallel.make_mesh(batch_size=eval_batch_size)``, as the JAX package
+shards it over its devices: every rank reads the test set and forms the
+same batches, a partial batch is padded (its last utterance repeated) to
+the mesh's size times the next power of two, capped at
+``eval_batch_size`` (``rtfs_net_tpu/evaluation.py:162-175``), each rank
+separates its rows, and rank 0 gathers the estimates and scores them. On
+one device a partial batch runs at its true size.
 """
 from __future__ import annotations
 
@@ -27,10 +34,12 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .datas import wavio
 from .datas.transform import MOUTH_MEAN, MOUTH_STD
 from .metrics.allwrapper import _np_neg_sdr
+from .parallel import make_mesh
 
 
 def _loss_sdr_type(loss_func) -> str:
@@ -154,8 +163,9 @@ def run_batched_eval(
 ) -> Dict:
     """Evaluate ``test_set`` (items ``(mix, sources, [mouths], key)``) with
     ``model`` on its device, feeding each utterance to ``metrics`` (an
-    ``ALLMetricsTracker``). ``video_apply`` maps a batch of frames on the
-    device to the lip embedding. Returns the run's timings:
+    ``ALLMetricsTracker``; under a process group on rank 0 only, the other
+    ranks score nothing and may pass None). ``video_apply`` maps a batch of
+    frames on the device to the lip embedding. Returns the run's timings:
 
     * ``batch_ms``: each batch's forward, by CUDA events on a card
       (``batch_clock`` "cuda_events"), else by the host clock ("host");
@@ -166,8 +176,16 @@ def run_batched_eval(
       when the device has nothing left to do;
     * ``score_ms_per_utt``: one utterance's scoring (PESQ, STOI, SI-SNR,
       SDR), median over the run;
-    * ``utterances``, ``batches``, ``wall_s``.
+    * ``utterances`` (scored here), ``batches``, ``ranks`` (the mesh's
+      size), ``wall_s``.
+
+    Every rank of the process group must call it; a rank outside the mesh
+    returns at once.
     """
+    mesh = make_mesh(batch_size=eval_batch_size)
+    n_dev, scores = mesh.size, mesh.index == 0
+    if not mesh.member:
+        return {"utterances": 0, "batches": 0, "ranks": n_dev}
     device = next(model.parameters()).device
     on_card = device.type == "cuda"
     reorder_sdr = _loss_sdr_type(loss_func)
@@ -202,12 +220,20 @@ def run_batched_eval(
     def flush(pool, pad_len: int, recs: List[_Record]):
         nonlocal wait_s
         t0 = time.perf_counter()
-        mix = np.stack([np.pad(r.mix, (0, pad_len - r.length)) for r in recs])
+        rows = recs
+        if n_dev > 1:
+            per_dev = 1
+            while per_dev * n_dev < len(recs):
+                per_dev *= 2
+            rows = recs + [recs[-1]] * (min(per_dev * n_dev, eval_batch_size) - len(recs))
+            share = len(rows) // n_dev
+            rows = rows[mesh.index * share:(mesh.index + 1) * share]
+        mix = np.stack([np.pad(r.mix, (0, pad_len - r.length)) for r in rows])
         mix = torch.from_numpy(mix.astype(np.float32, copy=False)).to(device)
         mouths = None
         if video_apply is not None and recs[0].mouths is not None:
             tv = -(-pad_len * fps // sample_rate)
-            frames = np.stack([_pad_mouth(r.mouths, tv) for r in recs])
+            frames = np.stack([_pad_mouth(r.mouths, tv) for r in rows])
             if frames.dtype != np.uint8:  # uint8 uploads at 1 byte per pixel
                 frames = frames.astype(np.float32)
             mouths = torch.from_numpy(frames).to(device)
@@ -220,10 +246,17 @@ def run_batched_eval(
             end.record()
             events.append((start, end))
         t1 = time.perf_counter()
-        est = est.float().cpu().numpy()
+        est = est.float()
+        if n_dev > 1:
+            parts = [torch.empty_like(est) for _ in range(n_dev)]
+            dist.all_gather(parts, est, group=mesh.group)
+            est = torch.cat(parts)
+        est = est.cpu().numpy()
         wait_s += time.perf_counter() - t1
         if not on_card:
             batch_ms.append((time.perf_counter() - t0) * 1e3)
+        if not scores:
+            return
         # hand scoring to the pool; the device starts on the next batch
         for i, r in enumerate(recs):
             overlap.submitted()
@@ -253,7 +286,7 @@ def run_batched_eval(
     if on_card:
         batch_ms = [start.elapsed_time(end) for start, end in events]
     return {
-        "utterances": len(futures), "batches": len(batch_ms),
+        "utterances": len(futures), "batches": len(batch_ms), "ranks": n_dev,
         "wall_s": time.perf_counter() - t_start,
         "batch_ms": batch_ms, "batch_clock": "cuda_events" if on_card else "host",
         "wait_for_device_s": wait_s, "scoring_idle_s": overlap.idle_s, "drain_s": drain_s,

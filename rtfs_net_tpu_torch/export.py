@@ -23,9 +23,19 @@ of ``torch.export.save``. The loader refuses the JAX package's files
 ``ServingArtifact`` serves any request batch: the smallest bucket at least
 as large as the request, zero-padded and sliced back, and requests larger
 than the largest bucket in chunks. Padding is exact: nothing in the model
-mixes the batch axis. Loading needs torch, numpy and the kernels' op
-registrations (``rtfs_net_tpu_torch.ops.kernels``): no model zoo, no
-config, no registry.
+mixes the batch axis.
+
+A multi-device artifact (``mesh_devices`` = N, JAX ``export.py:99-116``)
+holds each bucket's program traced at the bucket's batch over N, the
+weights inside it (replicated); the header records ``nr_devices``. The
+loader moves a copy of each program to each of N devices
+(``torch.export.passes.move_to_device_pass``, which also rewrites the
+devices the graph names) and serves a bucket call as N equal shards, one
+per device, launched before any is read back, then concatenated.
+
+Loading needs torch, numpy and the kernels' op registrations
+(``rtfs_net_tpu_torch.ops.kernels``): no model zoo, no config, no
+registry.
 """
 from __future__ import annotations
 
@@ -70,17 +80,19 @@ def export_serving(model: nn.Module, batch_size: int, segment_samples: int,
     mixtures and, unless ``mouth_shape`` is None (the audio-only
     convention), (batch_size, *mouth_shape) lip embeddings, both float32;
     compute in ``compute_dtype``. A copy of the model is traced, in eval
-    mode without gradients, on ``device``; ``model`` itself is untouched."""
-    if mesh_devices > 1:
-        raise NotImplementedError(
-            "a multi-device artifact (mesh_devices > 1) comes with data parallel, "
-            "ROADMAP Queue 1 item 2")
+    mode without gradients, on ``device``; ``model`` itself is untouched.
+    With ``mesh_devices`` = N the program serves one of N equal shards of
+    the batch (traced at batch_size / N rows), which must divide."""
+    if batch_size % mesh_devices:
+        raise ValueError(f"batch_size {batch_size} must shard evenly over "
+                         f"{mesh_devices} devices")
+    rows = batch_size // mesh_devices
     dtype = DTYPES[compute_dtype] if isinstance(compute_dtype, str) else compute_dtype
     device = torch.device(device)
     serving = _Serving(copy.deepcopy(model), dtype).to(device).eval().requires_grad_(False)
-    args = (torch.zeros((batch_size, segment_samples), device=device),)
+    args = (torch.zeros((rows, segment_samples), device=device),)
     if mouth_shape is not None:
-        args += (torch.zeros((batch_size, *mouth_shape), device=device),)
+        args += (torch.zeros((rows, *mouth_shape), device=device),)
     with torch.no_grad():
         return torch.export.export(serving, args, strict=False)
 
@@ -95,11 +107,12 @@ def op_counts(program: torch.export.ExportedProgram) -> Dict[str, int]:
     return dict(counts)
 
 
-def _base_header(program, segment_samples, mouth_shape, compute_dtype, extra):
+def _base_header(program, batch_size, segment_samples, mouth_shape, compute_dtype, extra):
     # the device of the request inputs (a lifted constant may sit on the CPU)
     inputs = set(program.graph_signature.user_inputs)
-    devices = {n.meta["val"].device.type for n in program.graph.nodes
-               if n.op == "placeholder" and n.name in inputs}
+    vals = [n.meta["val"] for n in program.graph.nodes
+            if n.op == "placeholder" and n.name in inputs]
+    devices = {v.device.type for v in vals}
     header = {
         "calling_convention": (
             "separated = f(mix_f32[B, L])" if mouth_shape is None
@@ -108,7 +121,8 @@ def _base_header(program, segment_samples, mouth_shape, compute_dtype, extra):
         "mouth_shape": list(mouth_shape) if mouth_shape is not None else None,
         "compute_dtype": compute_dtype,
         "platforms": sorted(devices),
-        "nr_devices": 1,
+        # the program serves one shard: the bucket's batch over its rows
+        "nr_devices": int(batch_size) // int(vals[0].shape[0]),
         "torch_version": str(torch.__version__),
     }
     header.update(extra or {})
@@ -143,7 +157,8 @@ def save_serving(path: str, program, batch_size: int, segment_samples: int,
                  extra: Optional[Dict[str, Any]] = None) -> None:
     """Write a one-bucket ``RTFSXTC1`` artifact."""
     header = {"batch_size": int(batch_size),
-              **_base_header(program, segment_samples, mouth_shape, compute_dtype, extra)}
+              **_base_header(program, batch_size, segment_samples, mouth_shape,
+                             compute_dtype, extra)}
     _write_frame(path, MAGIC, header, [_program_bytes(program)])
 
 
@@ -156,8 +171,8 @@ def save_serving_multi(path: str, programs_by_batch: Dict[int, Any], segment_sam
     blobs = [_program_bytes(programs_by_batch[b]) for b in sizes]
     header = {"buckets": [{"batch_size": int(b), "length": len(blob)}
                           for b, blob in zip(sizes, blobs)],
-              **_base_header(programs_by_batch[sizes[0]], segment_samples, mouth_shape,
-                             compute_dtype, extra)}
+              **_base_header(programs_by_batch[sizes[0]], sizes[0], segment_samples,
+                             mouth_shape, compute_dtype, extra)}
     _write_frame(path, MAGIC_MULTI, header, blobs)
 
 
@@ -191,28 +206,39 @@ def load_serving(path: str) -> Tuple[torch.export.ExportedProgram, Dict[str, Any
 
 
 class ServingArtifact:
-    """A loaded artifact that serves any request batch on ``device`` (default:
-    the platform it was exported on; another device type is refused).
+    """A loaded artifact that serves any request batch on its devices.
 
+    ``device``: a device (default: the platform it was exported on), or for
+    a multi-device artifact a list of at least ``nr_devices`` devices; a
+    bare ``cuda`` stands for ``cuda:0`` .. ``cuda:N-1`` and ``cpu`` for the
+    CPU N times. Fewer devices, or another device type, are refused.
     ``artifact(mix[, mouth])`` takes numpy arrays or tensors and returns
     numpy: the smallest bucket that fits, zero-padded and sliced back, and
     requests larger than the largest bucket in chunks. Each bucket's
-    program is deserialized at its first use (seconds per bucket)."""
+    program is deserialized at its first use (seconds per bucket and
+    device)."""
 
     def __init__(self, bodies_by_batch: Dict[int, bytes], header: Dict[str, Any], device=None):
         if not bodies_by_batch:
             raise ValueError("artifact has no buckets")
-        platform = header["platforms"][0]
-        self.device = torch.device(platform if device is None else device)
-        if self.device.type not in header["platforms"]:
-            raise ValueError(f"the artifact was exported for {header['platforms']} and cannot "
-                             f"serve on {self.device.type}: export it again with --device "
-                             f"{self.device.type}")
+        n = int(header.get("nr_devices", 1))
+        self.devices = _serving_devices(header["platforms"][0] if device is None else device, n)
+        if len(self.devices) < n:
+            raise ValueError(f"the artifact serves on {n} devices and was given "
+                             f"{len(self.devices)} ({[str(d) for d in self.devices]}): "
+                             f"load it where {n} are visible")
+        self.devices = self.devices[:n]
+        for d in self.devices:
+            if d.type not in header["platforms"]:
+                raise ValueError(f"the artifact was exported for {header['platforms']} and "
+                                 f"cannot serve on {d.type}: export it again with --device "
+                                 f"{d.type}")
+        self.device = self.devices[0]
         self.bodies = dict(sorted(bodies_by_batch.items()))
         self.header = header
         self.batch_sizes = list(self.bodies)
         self._programs: Dict[int, torch.export.ExportedProgram] = {}
-        self._modules: Dict[int, nn.Module] = {}
+        self._modules: Dict[Tuple[int, int], nn.Module] = {}
 
     def program(self, b: int) -> torch.export.ExportedProgram:
         """The program of the bucket of batch ``b``."""
@@ -220,22 +246,28 @@ class ServingArtifact:
             self._programs[b] = _load_program(self.bodies[b])
         return self._programs[b]
 
-    def module(self, b: int) -> nn.Module:
-        """The callable of the bucket of batch ``b``."""
-        if b not in self._modules:
-            self._modules[b] = self.program(b).module().to(self.device)
-        return self._modules[b]
+    def module(self, b: int, k: int = 0) -> nn.Module:
+        """The callable of the bucket of batch ``b`` on device ``k``."""
+        if (b, k) not in self._modules:
+            from torch.export.passes import move_to_device_pass
+
+            # device 0 takes the cached program, each other device a copy of its own
+            program = self.program(b) if k == 0 else _load_program(self.bodies[b])
+            device = self.devices[k]
+            self._modules[b, k] = move_to_device_pass(program, device).module().to(device)
+        return self._modules[b, k]
 
     def __call__(self, mix, mouth=None):
-        mix = torch.as_tensor(mix, dtype=torch.float32, device=self.device)
+        mix = torch.as_tensor(mix, dtype=torch.float32)
         if mouth is not None:
-            mouth = torch.as_tensor(mouth, dtype=torch.float32, device=self.device)
+            mouth = torch.as_tensor(mouth, dtype=torch.float32)
             if mouth.shape[0] != mix.shape[0]:
                 raise ValueError(f"mix/mouth batch mismatch: {mix.shape[0]} != "
                                  f"{mouth.shape[0]}")
         total = mix.shape[0]
         if total == 0:
             raise ValueError("empty request batch (mix.shape[0] == 0)")
+        n = len(self.devices)
         outs = []
         i = 0
         with torch.inference_mode():
@@ -251,13 +283,31 @@ class ServingArtifact:
                     return chunk
 
                 args = (prep(mix),) if mouth is None else (prep(mix), prep(mouth))
-                outs.append(self.module(b)(*args)[:take].cpu())
+                rows = b // n
+                shards = [self.module(b, k)(*(a[k * rows:(k + 1) * rows].to(d)
+                                               for a in args))
+                          for k, d in enumerate(self.devices)]
+                outs.append(torch.cat([y.cpu() for y in shards])[:take])
                 i += take
         return (torch.cat(outs) if len(outs) > 1 else outs[0]).numpy()
 
 
+def _serving_devices(device, n: int):
+    """The devices a ``device`` argument names for an artifact of ``n``
+    devices."""
+    if isinstance(device, (list, tuple)):
+        return [torch.device(d) for d in device]
+    device = torch.device(device)
+    if device.type == "cpu":
+        return [device] * n
+    if device.type == "cuda" and device.index is None and n > 1:
+        return [torch.device("cuda", i) for i in range(min(n, torch.cuda.device_count()))]
+    return [device]
+
+
 def load_artifact(path: str, device=None) -> ServingArtifact:
-    """Load either format into a batch-flexible server on ``device``."""
+    """Load either format into a batch-flexible server on ``device`` (a
+    device or a list of them, ``ServingArtifact``)."""
     magic, header, body = _read_frame(path)
     if magic == MAGIC:
         return ServingArtifact({int(header["batch_size"]): body}, header, device)

@@ -3,7 +3,8 @@
 
     python -m rtfs_net_tpu_torch.export_serving --ckpt <exp_dir>/best_model.pth \
         --out model.rtfsx [--batch-size 128 | --batch-sizes 1,8,32,128] \
-        [--segment 2.0] [--dtype bfloat16|float32] [--device cuda|cpu]
+        [--segment 2.0] [--dtype bfloat16|float32] [--device cuda|cpu] \
+        [--mesh-devices N]
 
 The artifact is a ``torch.export`` program per batch size with the weights
 inside (``rtfs_net_tpu_torch/export.py``); ``export.load_artifact`` serves
@@ -43,8 +44,9 @@ def main(argv=None):
     p.add_argument("--device", default="cuda",
                    help="the device the artifact serves on: cuda (default) or cpu")
     p.add_argument("--mesh-devices", type=int, default=1,
-                   help="a multi-device artifact; above 1 it raises (data parallel is "
-                        "not ported yet)")
+                   help="a multi-device artifact: each call served as this many equal "
+                        "shards of the batch, one per device (every batch size must "
+                        "divide by it)")
     args = p.parse_args(argv)
 
     import yaml
@@ -90,7 +92,8 @@ def main(argv=None):
                      mouth_shape=mouth_shape, compute_dtype=args.dtype, extra=extra)
     size = os.path.getsize(out)
     print(f"exported {out} ({size/1e6:.1f} MB, platforms={[device.type]}, "
-          f"B={sizes}, L={segment_samples}, mouth={mouth_shape}, {args.dtype})")
+          f"B={sizes}, L={segment_samples}, mouth={mouth_shape}, {args.dtype}, "
+          f"nr_devices={args.mesh_devices})")
     return out, seconds
 
 

@@ -89,7 +89,8 @@ class MultiHeadSelfAttention(nn.Module):
         if self.pos_enc:
             pe = positional_encoding(y.shape[1], y.shape[2])
             y = y + torch.from_numpy(pe).to(device=y.device, dtype=y.dtype)
-        y = self.norm2(dropout(self.attention(y), self.dropout, self.training) + y)
+        y = self.norm2(dropout(self.attention(y), self.dropout, self.training,
+                               0 if self.batch_first else 1) + y)
         if self.batch_first:
             y = y.transpose(1, 2)
         return self.drop_path(y) + x

@@ -83,4 +83,4 @@ class FRCNN(RepeatedBlocks):
             return FRCNNBlock(in_chan, hid_chan, kernel_size, stride, norm_type, act_type,
                               upsampling_depth, is2d)
 
-        super().__init__(block, repeats, shared, remat)
+        super().__init__(block, repeats, shared, remat, in_chan > 0 and hid_chan > 0)

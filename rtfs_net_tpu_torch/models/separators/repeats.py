@@ -15,21 +15,21 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ...ops.dropout import active_generator, use_generator
+from ...ops.dropout import active_generator, active_shard, use_generator
 
 
 def checkpointed(block: nn.Module, x):
     """``block(x)`` under ``torch.utils.checkpoint``, with the recompute in
     the backward made to repeat the forward exactly:
 
-    * dropout masks: the recompute draws from the same active generator,
-      reset to its state at the forward call (``checkpoint`` itself only
+    * dropout masks: the recompute draws from the same active generator
+      (and batch shard), reset to its state at the forward call (``checkpoint`` itself only
       restores PyTorch's global generators), and the generator is put back
       where the forward left it afterwards;
     * BatchNorm statistics: the recompute's update of the running buffers
       is undone, so they move once per step, as JAX discards the
       recompute's ``batch_stats``."""
-    generator = active_generator()
+    generator, shard = active_generator(), active_shard()
     start = None if generator is None else generator.get_state()
     calls = 0
 
@@ -43,7 +43,7 @@ def checkpointed(block: nn.Module, x):
         if generator is not None:
             generator.set_state(start)
         try:
-            with use_generator(generator):
+            with use_generator(generator, shard):
                 return block(inp)
         finally:
             if generator is not None:
@@ -58,16 +58,25 @@ def checkpointed(block: nn.Module, x):
 class RepeatedBlocks(nn.Module):
     """``repeats`` block calls, ``x = block_i(x + input)`` for i > 0.
     ``get_block`` returns a callable that checkpoints the block when
-    ``remat`` is set and the block trains under autograd."""
+    ``remat`` is set and the block trains under autograd. Without
+    ``channels`` (the separator was given ``in_chan <= 0`` or ``hid_chan <=
+    0``) no block is built and every repeat is the identity, so the output
+    is ``repeats * x``, as in the JAX package."""
 
     def __init__(self, make_block: Callable[[], nn.Module], repeats: int, shared: bool,
-                 remat: bool):
+                 remat: bool, channels: bool = True):
         super().__init__()
         self.repeats, self.shared, self.remat = repeats, shared, remat
-        self.blocks = (make_block() if shared
-                       else nn.ModuleList(make_block() for _ in range(repeats)))
+        if not channels:
+            self.blocks = None
+        elif shared:
+            self.blocks = make_block()
+        else:
+            self.blocks = nn.ModuleList(make_block() for _ in range(repeats))
 
     def get_block(self, i: int):
+        if self.blocks is None:
+            return lambda x: x
         block = self.blocks if self.shared else self.blocks[i]
 
         def call(x):

@@ -20,14 +20,45 @@ replaces an audio-only batch's mixture by an energy-matched remix of its
 sources (``online_mixing_collate``). ``step`` counts the optimizer steps;
 ``state_dict``/``load_state_dict`` carry it with the model's, the
 optimizer's and (when it trains) the video model's state.
+
+``distribute(mesh)`` (``parallel.make_parallel_train_step``) makes each
+step the one-device step on the global batch of which this rank holds a
+shard: the forward runs in ``DistributedDataParallel``, BatchNorms become
+``SyncBatchNorm``, dropout masks are drawn for the global batch, the
+remix permutes it, and the losses are averaged over the mesh. The state
+dict keeps the plain module names.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, Optional, Sequence
 
 import torch
+import torch.distributed as dist
+from torch import nn
 
 from ..ops.dropout import use_generator
+
+
+class _Forward(nn.Module):
+    """The step's forward as one module (what ``DistributedDataParallel``
+    wraps): the lip embedding from the video model (with autograd only when
+    it trains), then the model, activations in ``compute_dtype``, output in
+    float32."""
+
+    def __init__(self, model, video_model, train_video_model, compute_dtype):
+        super().__init__()
+        self.model, self.video_model = model, video_model
+        self.train_video_model, self.compute_dtype = train_video_model, compute_dtype
+
+    def forward(self, mix, mouths):
+        if self.compute_dtype is not None:
+            mix = mix.to(self.compute_dtype)
+            mouths = None if mouths is None else mouths.to(self.compute_dtype)
+        if self.video_model is not None and mouths is not None:
+            with torch.set_grad_enabled(self.train_video_model and torch.is_grad_enabled()):
+                mouths = self.video_model(mouths)
+        return self.model(mix, mouths).float()
 
 
 class System:
@@ -57,6 +88,10 @@ class System:
         # (reference core.py:96-98, when there is no video model)
         self.online_mix = bool(online_mix)
         self.step = 0
+        self.net = _Forward(model, video_model, self.train_video_model, compute_dtype)
+        # set by ``distribute``: the mesh and the forward in DDP
+        self.mesh = None
+        self.replica = None
 
     def _parameters(self):
         """Every parameter the optimizer updates."""
@@ -65,14 +100,48 @@ class System:
             params += list(self.video_model.parameters())
         return params
 
-    def _forward(self, mix, mouths):
-        if self.compute_dtype is not None:
-            mix = mix.to(self.compute_dtype)
-            mouths = None if mouths is None else mouths.to(self.compute_dtype)
-        if self.video_model is not None and mouths is not None:
-            with torch.set_grad_enabled(self.train_video_model and torch.is_grad_enabled()):
-                mouths = self.video_model(mouths)
-        return self.model(mix, mouths).float()
+    def distribute(self, mesh):
+        """Train data-parallel over ``mesh`` (a ``parallel.Mesh`` this rank
+        belongs to); a second call changes nothing. The trained modules'
+        BatchNorms become ``SyncBatchNorm`` over the mesh's group (same
+        tensors, same keys) and the forward runs in
+        ``DistributedDataParallel``: gradients averaged over the mesh, no
+        parameter left unused (``find_unused_parameters=False``)."""
+        if self.replica is not None:
+            return
+        from torch.nn.parallel import DistributedDataParallel
+
+        from ..parallel.sync_batchnorm import convert_sync_batchnorm
+
+        convert_sync_batchnorm(self.model, mesh.group)
+        if self.train_video_model:
+            convert_sync_batchnorm(self.video_model, mesh.group)
+        device = next(self.model.parameters()).device
+        self.replica = DistributedDataParallel(
+            self.net, device_ids=[device] if device.type == "cuda" else None,
+            process_group=mesh.group, find_unused_parameters=False)
+        self.mesh = mesh
+
+    def _shard(self):
+        """(index, count) of this rank's rows in the global batch."""
+        return (0, 1) if self.mesh is None else (self.mesh.index, self.mesh.size)
+
+    def _mean_over_mesh(self, loss):
+        if self.mesh is not None:
+            dist.all_reduce(loss, group=self.mesh.group)
+            loss = loss / self.mesh.size
+        return loss
+
+    def _remix(self, targets, generator):
+        """``online_mixing_collate`` of the global batch (gathered from the
+        mesh), this rank's rows of it."""
+        if self.mesh is None:
+            return online_mixing_collate(targets, generator)
+        parts = [torch.empty_like(targets) for _ in range(self.mesh.size)]
+        dist.all_gather(parts, targets.contiguous(), group=self.mesh.group)
+        mix, targets = online_mixing_collate(torch.cat(parts), generator)
+        rows = slice(self.mesh.index * len(parts[0]), (self.mesh.index + 1) * len(parts[0]))
+        return mix[rows], targets[rows]
 
     @staticmethod
     def _targets(targets):
@@ -94,7 +163,7 @@ class System:
         if self.online_mix and mouths is None:
             # the mixture is REPLACED by a fresh sum of energy-matched,
             # batch-permuted sources
-            mix, targets = online_mixing_collate(targets, generator)
+            mix, targets = self._remix(targets, generator)
         A = self.accum_steps
         B = mix.shape[0]
         if B % A:
@@ -102,16 +171,21 @@ class System:
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
         total = torch.zeros((), device=mix.device)
-        with use_generator(generator):
-            for m, t, mo in zip(mix.chunk(A), targets.chunk(A),
-                                (None,) * A if mouths is None else mouths.chunk(A)):
-                loss = self.loss_func["train"](self._forward(m, mo), t)
-                (loss / A).backward()
+        forward = self.net if self.replica is None else self.replica
+        with use_generator(generator, self._shard()):
+            for i, (m, t, mo) in enumerate(zip(
+                    mix.chunk(A), targets.chunk(A),
+                    (None,) * A if mouths is None else mouths.chunk(A))):
+                # DDP averages the gradients once, in the last microbatch's backward
+                last = self.replica is None or i == A - 1
+                with contextlib.nullcontext() if last else self.replica.no_sync():
+                    loss = self.loss_func["train"](forward(m, mo), t)
+                    (loss / A).backward()
                 total += loss.detach()
         for p in self._parameters():
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        return total / A
+        return self._mean_over_mesh(total / A)
 
     def train_step(self, batch, generator: Optional[torch.Generator] = None
                    ) -> Dict[str, torch.Tensor]:
@@ -133,8 +207,8 @@ class System:
     def val_step(self, batch) -> Dict[str, torch.Tensor]:
         mix, targets, mouths = batch
         self.model.eval()
-        loss = self.loss_func["val"](self._forward(mix, mouths), self._targets(targets))
-        return {"val_loss": loss}
+        loss = self.loss_func["val"](self.net(mix, mouths), self._targets(targets))
+        return {"val_loss": self._mean_over_mesh(loss)}
 
     def state_dict(self) -> Dict:
         """The training state: tensors and plain containers only."""

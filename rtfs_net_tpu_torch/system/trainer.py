@@ -2,9 +2,14 @@
 pytorch-lightning (``pl.Trainer.fit``, train.py:135-148); the counterpart
 of ``rtfs_net_tpu/system/trainer.py``.
 
-One process drives a ``System`` on one device. Host-side bookkeeping
-(schedulers, early stop, checkpoints, TensorBoard scalars) runs between
-epochs like the reference's callbacks:
+Each process drives a ``System`` on one device; under a process group
+(``parallel.initialize``) the ranks of the mesh (``parallel.make_mesh``:
+by default every rank, clamped so that they divide the global
+``batch_size``) train data-parallel, each on its shard of the global batch
+(``parallel.make_parallel_train_step``), and a rank outside the mesh sits
+the run out. Host-side bookkeeping (schedulers, early stop, checkpoints,
+TensorBoard scalars) runs between epochs like the reference's callbacks,
+the writes and prints on rank 0 only:
 
   * grad clip 5.0 (inside the step), AdamW from config
   * ReduceLROnPlateau(factor, patience) on val_loss when ``half_lr``
@@ -16,7 +21,8 @@ epochs like the reference's callbacks:
 
 Each step's loss stays on the device; the host reads the losses only
 every ``log_every`` steps and at the epoch's end, so the loop adds no
-synchronisation per step.
+synchronisation per step. Under a process group a signal to any rank
+stops every rank at the same step boundary (``_Agreement``).
 """
 from __future__ import annotations
 
@@ -28,8 +34,10 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..models import resolve_device
+from ..parallel import make_mesh, make_parallel_train_step, make_parallel_val_step, process_info
 from .checkpoint import CheckpointManager
 from .core import System
 from .optimizers import get_lr, set_lr
@@ -52,17 +60,24 @@ class Trainer:
         early_stop_patience: int = 15,
         save_top_k: int = 5,
         n_devices: Optional[int] = None,
+        batch_size: Optional[int] = None,
         log_every: int = 50,
         device="cuda",
     ):
-        if n_devices is not None and n_devices > 1:
-            raise NotImplementedError("data-parallel training is not ported yet")
         self.system = system
         self.exp_dir = exp_dir
         self.epochs = epochs
         self.config = config or {}
         self.device = resolve_device(device)
         os.makedirs(exp_dir, exist_ok=True)
+
+        # the global batch, which the mesh's ranks must divide
+        if batch_size is None:
+            batch_size = (self.config.get("training") or {}).get("batch_size")
+        self.mesh = make_mesh(n_devices, batch_size=batch_size)
+        self.train_step = make_parallel_train_step(system, self.mesh)
+        self.val_step = make_parallel_val_step(system, self.mesh)
+        self.rank0 = process_info()[0] == 0
 
         self.ckpt = CheckpointManager(exp_dir, top_k=save_top_k, config=self.config)
         self.logger = TensorBoardLogger(os.path.join(exp_dir, "tb"))
@@ -108,8 +123,13 @@ class Trainer:
                 return
             yield self._prep_batch(batch)
 
+    def _print(self, msg: str):
+        if self.rank0:
+            print(msg, flush=True)
+
     def resume(self, checkpoint: Optional[str] = None):
-        """Resume the system from 'last' (or a named checkpoint). The state
+        """Resume the system from 'last' (or a named checkpoint); every rank
+        reads the same file. The state
         is read to the host: loading it moves the parameters' and the
         optimizer's tensors to the parameters' device, and leaves each
         optimizer ``step`` count on the host, where ``torch.optim`` keeps it
@@ -135,7 +155,7 @@ class Trainer:
             self.plateau.load_state_dict(sched["plateau"])
         if self.early and "early" in sched:
             self.early.load_state_dict(sched["early"])
-        print(f"resumed from epoch {self.start_epoch}")
+        self._print(f"resumed from epoch {self.start_epoch}")
 
     # ------------------------------------------------------------------
     def _install_preempt_handlers(self):
@@ -149,7 +169,7 @@ class Trainer:
         def _flag(signum, frame):
             self._preempted = True
             print(f"signal {signum}: checkpointing and stopping after the "
-                  "current step", flush=True)
+                  "current step", flush=True)  # on the rank that got it
 
         for sig in (signal.SIGTERM, signal.SIGUSR1):
             try:
@@ -160,10 +180,15 @@ class Trainer:
 
     def fit(self, train_loader, val_loader, generator: Optional[torch.Generator] = None):
         """Train from ``start_epoch`` to ``epochs``. Dropout masks come from
-        ``generator`` (default: one on the device, seeded with 0)."""
+        ``generator`` (default: one on the device, seeded with 0; every rank
+        must hold the same one). A rank outside the mesh returns at once;
+        the mesh's ranks take their loaders' shards of each global batch."""
+        if not self.mesh.member:
+            return
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
-        self.logger.log_hyperparams(self.config)
+        if self.rank0:
+            self.logger.log_hyperparams(self.config)
         self._preempted = False
         prev_handlers = self._install_preempt_handlers()
         try:
@@ -182,53 +207,61 @@ class Trainer:
 
     def _fit_loop(self, train_loader, val_loader, generator):
         system = self.system
+        stop = _Agreement(self.mesh, self.device)
         for epoch in range(self.start_epoch, self.epochs):
             epoch_t0 = time.perf_counter()
             self._waited = 0.0
             train_loader.set_epoch(epoch)
             losses = []
+            preempted = False
             for batch in self._batches(train_loader):
-                loss = system.train_step(batch, generator)["loss"]
-                if system.step % self.log_every == 0:
+                loss = self.train_step(batch, generator)["loss"]
+                if self.rank0 and system.step % self.log_every == 0:
                     self.logger.add_scalar("train_loss_step", float(loss), system.step)
                 losses.append(loss)
-                if self._preempted:
+                preempted = stop.lagged(self._preempted)
+                if preempted:
                     break
-            if self._preempted:
-                self.ckpt.save_preempt(system.state_dict(), epoch - 1,
-                                       extra={"schedulers": self._sched_state()})
-                print(f"preempted during epoch {epoch}: saved 'preempt' "
-                      f"checkpoint; resume restarts epoch {epoch}", flush=True)
+            if preempted:
+                if self.rank0:
+                    self.ckpt.save_preempt(system.state_dict(), epoch - 1,
+                                           extra={"schedulers": self._sched_state()})
+                self._print(f"preempted during epoch {epoch}: saved 'preempt' "
+                            f"checkpoint; resume restarts epoch {epoch}")
                 break
             train_loss = _mean(losses)
 
             val_losses = []
             for batch in self._batches(val_loader):
-                val_losses.append(system.val_step(batch)["val_loss"])
-                if self._preempted:
+                val_losses.append(self.val_step(batch)["val_loss"])
+                preempted = stop.lagged(self._preempted)
+                if preempted:
                     break
-            if self._preempted:
+            if preempted:
                 # training of this epoch IS complete — checkpoint now
                 # (bounded by one val step) rather than after the whole
                 # val sweep + epoch save, which could outlast the
                 # preemption grace window on a large val set
-                self.ckpt.save_preempt(system.state_dict(), epoch,
-                                       extra={"schedulers": self._sched_state()})
-                print(f"preempted during validation of epoch {epoch}: "
-                      f"saved 'preempt' checkpoint; resume starts epoch "
-                      f"{epoch + 1}", flush=True)
+                if self.rank0:
+                    self.ckpt.save_preempt(system.state_dict(), epoch,
+                                           extra={"schedulers": self._sched_state()})
+                self._print(f"preempted during validation of epoch {epoch}: "
+                            f"saved 'preempt' checkpoint; resume starts epoch "
+                            f"{epoch + 1}")
                 break
             val_loss = _mean(val_losses)
 
             lr = get_lr(system.optimizer)
-            self.logger.add_scalar("train_loss", train_loss, epoch)
-            self.logger.add_scalar("val_loss", val_loss, epoch)
-            self.logger.add_scalar("train_sisnr", -train_loss, epoch)
-            self.logger.add_scalar("val_sisnr", -val_loss, epoch)
-            self.logger.add_scalar("learning_rate", lr, epoch)
+            if self.rank0:
+                self.logger.add_scalar("train_loss", train_loss, epoch)
+                self.logger.add_scalar("val_loss", val_loss, epoch)
+                self.logger.add_scalar("train_sisnr", -train_loss, epoch)
+                self.logger.add_scalar("val_sisnr", -val_loss, epoch)
+                self.logger.add_scalar("learning_rate", lr, epoch)
 
             # schedulers (reference: ReduceLROnPlateau on val_loss OR
-            # manual staircase, core.py:203-211)
+            # manual staircase, core.py:203-211); the val loss is the mesh's
+            # mean, so every rank steps them alike
             new_lr = lr
             if self.staircase is not None:
                 new_lr = self.staircase.step(epoch, new_lr)
@@ -236,27 +269,29 @@ class Trainer:
                 new_lr = self.plateau.step(val_loss, new_lr)
             if new_lr != lr:
                 set_lr(system.optimizer, new_lr)
-                print(f"  lr -> {new_lr:.2e}")
+                self._print(f"  lr -> {new_lr:.2e}")
 
-            self.ckpt.save(system.state_dict(), epoch, val_loss,
-                           extra={"schedulers": self._sched_state()})
+            if self.rank0:
+                self.ckpt.save(system.state_dict(), epoch, val_loss,
+                               extra={"schedulers": self._sched_state()})
             wall = time.perf_counter() - epoch_t0
             self.history.append({"epoch": epoch, "train_loss": train_loss,
                                  "val_loss": val_loss, "lr": lr, "wall_s": wall,
                                  "loader_wait_s": self._waited})
-            print(f"epoch {epoch}: train_loss={train_loss:.3f} "
-                  f"val_loss={val_loss:.3f} lr={lr:.2e} ({wall:.1f}s)")
+            self._print(f"epoch {epoch}: train_loss={train_loss:.3f} "
+                        f"val_loss={val_loss:.3f} lr={lr:.2e} ({wall:.1f}s)")
 
             if self.early is not None and self.early.step(val_loss):
-                print(f"early stopping at epoch {epoch}")
+                self._print(f"early stopping at epoch {epoch}")
                 break
-            if self._preempted:
+            if stop.now(self._preempted):
                 # arrived during validation: the epoch checkpoint above
                 # already captured the completed epoch — just stop.
-                print(f"preempted after epoch {epoch}: stopping", flush=True)
+                self._print(f"preempted after epoch {epoch}: stopping")
                 break
 
-        self.logger.finalize()
+        if self.rank0:
+            self.logger.finalize()
 
     # ------------------------------------------------------------------
     def export_best(self, model_name: str, model_args: Dict) -> str:
@@ -286,6 +321,51 @@ class Trainer:
         path = os.path.join(self.exp_dir, "best_model.pth")
         serialization.save_model(path, model_name, model_args, state)
         return path
+
+
+class _Agreement:
+    """Whether any rank of ``mesh`` has been signalled. Without a process
+    group it is this process's flag. With one, ``lagged`` puts this
+    process's flag into an all-reduce (max) over the mesh and returns the
+    result of the call before, copied to the host behind an event: the host
+    waits for the previous step and its collective, never for the step it
+    has just queued. ``now`` waits for a fresh result. Every rank makes the
+    same calls in the same order, so all read the same values and stop at
+    the same step boundary."""
+
+    def __init__(self, mesh, device):
+        self.mesh, self.device, self.pending = mesh, device, None
+
+    def _put(self, flag: bool):
+        value = torch.full((1,), float(flag), device=self.device)
+        dist.all_reduce(value, op=dist.ReduceOp.MAX, group=self.mesh.group)
+        if value.device.type != "cuda":
+            return value, None
+        host = torch.empty(1, pin_memory=True)
+        host.copy_(value, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return host, done
+
+    @staticmethod
+    def _read(pending) -> bool:
+        value, done = pending
+        if done is not None:
+            done.synchronize()
+        return bool(value.item())
+
+    def lagged(self, flag: bool) -> bool:
+        if not self.mesh.distributed:
+            return flag
+        pending, self.pending = self.pending, self._put(flag)
+        return pending is not None and self._read(pending)
+
+    def now(self, flag: bool) -> bool:
+        if not self.mesh.distributed:
+            return flag
+        pending, self.pending = self.pending, None
+        earlier = pending is not None and self._read(pending)
+        return self._read(self._put(flag)) or earlier
 
 
 def _mean(losses) -> float:

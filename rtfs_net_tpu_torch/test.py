@@ -24,6 +24,10 @@ at a time (default: the training batch x 2); metrics are computed on the
 unpadded samples. Zero padding shifts the gLN statistics slightly, so
 smaller buckets are more faithful.
 
+Under ``torchrun --nproc_per_node=N -m rtfs_net_tpu_torch.test ...`` every
+batch is sharded over the ranks (``evaluation.run_batched_eval``) and rank
+0 scores and writes the results.
+
 This module imports no torch at the top, as ``train.py``: a script that
 drives ``main`` may start the port's spawned loader workers, which import
 the main module again.
@@ -59,19 +63,32 @@ def summary_rows(conf, n_params, macs, video_macs, mean, std):
 def main(conf):
     """Evaluate as ``conf`` says; returns ``{"results": rows of results.csv,
     "eval": run_batched_eval's timings, "save_dir": ...}``."""
+    import torch.distributed as dist
+
+    from .parallel import initialize, local_device, process_info, shutdown
+
+    main_args = conf["main_args"]
+    device = main_args.get("device", "cuda")
+    owns_group = not dist.is_initialized() and initialize(device)
+    try:
+        return _evaluate(conf, local_device(device), process_info()[0] == 0)
+    finally:
+        if owns_group:
+            shutdown()
+
+
+def _evaluate(conf, device, rank0):
     import torch
 
     from .datas import AVSpeechDataset
     from .evaluation import normalize_mouths, run_batched_eval
     from .losses import PITLossWrapper, pairwise_neg_sisdr
     from .metrics import ALLMetricsTracker
-    from .models import resolve_device
     from .models.serialization import load_model
     from .train import build_video_model
     from .utils.flops import conv_dot_macs, count_params
 
     main_args = conf["main_args"]
-    device = resolve_device(main_args.get("device", "cuda"))
     exp_dir = main_args.get("exp_dir") or os.path.dirname(main_args["conf_dir"])
     model, _ = load_model(os.path.join(exp_dir, "best_model.pth"), device=device, conf=conf)
     video = build_video_model(conf, device)
@@ -87,8 +104,10 @@ def main(conf):
         device_normalize_video=bool(main_args.get("device_normalize_video", False)),
     )
     save_dir = os.path.join(exp_dir, "results_new")
-    os.makedirs(os.path.join(save_dir, "examples"), exist_ok=True)
-    metrics = ALLMetricsTracker(save_file=os.path.join(save_dir, "metrics.csv"))
+    metrics = None
+    if rank0:
+        os.makedirs(os.path.join(save_dir, "examples"), exist_ok=True)
+        metrics = ALLMetricsTracker(save_file=os.path.join(save_dir, "metrics.csv"))
     sr = conf["data"]["sample_rate"]
     stats = run_batched_eval(
         model=model, test_set=test_set, metrics=metrics,
@@ -100,6 +119,8 @@ def main(conf):
         sample_rate=sr, n_save_ex=int(main_args.get("n_save_ex", 10)),
         examples_dir=os.path.join(save_dir, "examples"),
     )
+    if not rank0:
+        return {"results": None, "eval": stats, "save_dir": save_dir}
     metrics.final()
     mean, std = metrics.get_mean(), metrics.get_std()
     for k in sorted(mean, key=lambda k: METRIC_ORDER.index(k) if k in METRIC_ORDER else 100):

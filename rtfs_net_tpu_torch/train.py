@@ -7,8 +7,15 @@
 
 Builds the loaders, the model, its video model and the optimizer from the
 YAML config (every second-level leaf is a CLI flag), resumes from the
-experiment's last checkpoint, trains on one device and exports the best
-model as ``<log.path>/<log.exp_name>/best_model.pth``.
+experiment's last checkpoint, trains and exports the best model as
+``<log.path>/<log.exp_name>/best_model.pth``.
+
+Data parallel: ``torchrun --nproc_per_node=N -m rtfs_net_tpu_torch.train
+...`` starts one process per card; they join one process group
+(``parallel.initialize``) and train data-parallel, ``training.batch_size``
+being the global batch (each rank reads its shard of it) and rank 0
+writing the checkpoints, the logs and the export. Without ``torchrun`` it
+trains on one device.
 
 This module imports no torch at the top: the data loader's spawned
 workers import the main module again.
@@ -21,7 +28,9 @@ import yaml
 from .utils import parse_args_as_dict, prepare_parser_from_dict, str2bool_arg
 
 
-def build_dataloaders(conf):
+def build_dataloaders(conf, shard_index=0, num_shards=1):
+    """The train and validation loaders; with ``num_shards`` ranks, this
+    rank's shard of each global batch of ``training.batch_size``."""
     from .datas import AVSpeechDataset, DataLoader
 
     audio_only = conf["main_args"].get("audio_only", False)
@@ -34,8 +43,9 @@ def build_dataloaders(conf):
         audio_only=audio_only,
     ) for split in ("train_dir", "valid_dir")]
     return tuple(DataLoader(
-        ds, batch_size=conf["training"]["batch_size"], shuffle=shuffle,
+        ds, batch_size=conf["training"]["batch_size"] // num_shards, shuffle=shuffle,
         num_workers=conf["training"]["num_workers"], drop_last=True,
+        shard_index=shard_index, num_shards=num_shards,
     ) for ds, shuffle in zip(sets, (True, False)))
 
 
@@ -65,22 +75,27 @@ def build_video_model(conf, device="cuda"):
 
 def main(conf):
     """Train as ``conf`` says; returns the ``Trainer`` (its ``history``,
-    ``system`` and ``exp_dir``) after exporting ``best_model.pth``."""
+    ``system`` and ``exp_dir``) after exporting ``best_model.pth`` (rank
+    0). Under ``torchrun`` every rank runs it and they train data-parallel;
+    a process group this call made, it leaves at the end."""
+    import torch.distributed as dist
+
     from .losses import PITLossWrapper, pairwise_neg_sisdr, pairwise_neg_snr
-    from .models import build_model, resolve_device
+    from .models import build_model
+    from .parallel import initialize, local_device, shutdown
     from .system import System, Trainer, make_optimizer
 
-    device = resolve_device(conf["main_args"].get("device", "cuda"))
-    train_loader, val_loader = build_dataloaders(conf)
+    device = conf["main_args"].get("device", "cuda")
+    owns_group = not dist.is_initialized() and initialize(device)
+    loaders = ()
     try:
+        device = local_device(device)
         video_model = build_video_model(conf, device)
         model = build_model(conf["audionet"], device=device)
         optimizer = make_optimizer(model.parameters(), **conf["optim"])
 
         exp_dir = os.path.join(conf["log"]["path"], conf["log"]["exp_name"])
         os.makedirs(exp_dir, exist_ok=True)
-        with open(os.path.join(exp_dir, "conf.yaml"), "w") as f:
-            yaml.safe_dump(conf, f, default_flow_style=None)
 
         loss_func = {
             "train": PITLossWrapper(pairwise_neg_snr, pit_from="pw_mtx"),
@@ -105,13 +120,21 @@ def main(conf):
             early_stop=conf["training"]["early_stop"],
             device=device,
         )
-        trainer.resume(conf["main_args"].get("checkpoint"))
-        trainer.fit(train_loader, val_loader)
-        print(f"exported {trainer.export_best('AVNet', conf['audionet'])}")
+        if trainer.rank0:
+            with open(os.path.join(exp_dir, "conf.yaml"), "w") as f:
+                yaml.safe_dump(conf, f, default_flow_style=None)
+        if trainer.mesh.member:
+            loaders = build_dataloaders(conf, trainer.mesh.index, trainer.mesh.size)
+            trainer.resume(conf["main_args"].get("checkpoint"))
+            trainer.fit(*loaders)
+        if trainer.rank0:
+            print(f"exported {trainer.export_best('AVNet', conf['audionet'])}")
         return trainer
     finally:
-        train_loader.close()
-        val_loader.close()
+        for loader in loaders:
+            loader.close()
+        if owns_group:
+            shutdown()
 
 
 def parse_conf(argv=None):

@@ -232,6 +232,8 @@ def separator(r: Reader, out, src: str, path: Path, params: dict, which: str):
         return
     if net not in _BLOCKS:
         raise NotImplementedError(f"{which}_net {net!r} is not ported yet")
+    if params.get("hid_chan", -1) <= 0:
+        return  # no blocks: every repeat is the identity
     block = _BLOCKS[net]
     if params.get("shared", False):
         block(r, out, _k(src, "blocks"), path + ("blocks",), params)

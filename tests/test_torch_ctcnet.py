@@ -344,3 +344,45 @@ def test_serving_artifact_of_ctcnet(tiny, tmp_path):
     with torch.no_grad():
         want = model(torch.from_numpy(mix), torch.from_numpy(mouth)).numpy()
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("net", ["TDANet", "FRCNN"])
+def test_separator_without_channels_is_the_identity(rng, net):
+    """``hid_chan: -1`` builds no block in either package: each repeat is
+    the identity and the residual sum makes the output ``repeats * x``."""
+    from rtfs_net_tpu.models.separators import tdanet as jtdanet
+    from rtfs_net_tpu_torch.models.separators import tdanet
+
+    x = rng.standard_normal((2, 6, 37)).astype(np.float32)
+    params = dict(in_chan=6, hid_chan=-1, repeats=3, shared=False)
+    jm = {"TDANet": jtdanet.TDANet, "FRCNN": jfrcnn.FRCNN}[net](**params)
+    pm = {"TDANet": tdanet.TDANet, "FRCNN": frcnn.FRCNN}[net](**params)
+    assert list(pm.state_dict()) == []
+    _check(pm, jm, jax_random(jm, rng, x), x)
+    np.testing.assert_allclose(port_apply(pm, x), 3 * x, rtol=1e-6)
+
+
+@pytest.mark.parametrize("which", ["rtfs", "ctcnet"])
+def test_avnet_with_an_identity_video_net_matches_jax(which):
+    """A tiny AVNet whose video separator has ``hid_chan: -1`` (a TDANet in
+    the RTFS config, an FRCNN in the CTCNet one) builds in both packages,
+    its weights carry over, and the forwards agree within 5e-4·max|ref|."""
+    from test_torch_avnet import TINY as RTFS_TINY
+
+    conf = copy.deepcopy(RTFS_TINY if which == "rtfs" else TINY)
+    conf["video_params"]["hid_chan"] = -1
+    rng = np.random.default_rng(3)
+    mix = rng.standard_normal((B, L)).astype(np.float32)
+    mouth = rng.standard_normal((B, 16, TV)).astype(np.float32)
+    jm = JaxAVNet(**conf)
+    v = jax_random(jm, rng, mix, mouth)
+    assert "video_net" not in v["params"]["refinement_module"]
+    model = build_model(conf, device="cpu")
+    model.load_state_dict(convert.state_dict_from_jax(v, conf))
+    assert not any(k.startswith("refinement_module.video_net") for k in model.state_dict())
+    with interpolated_sizes() as sizes, torch.no_grad():
+        got = model(torch.from_numpy(mix), torch.from_numpy(mouth)).numpy()
+    assert_nearest_maps_agree(sizes)
+    want = jax_apply(jm, v, mix, mouth)
+    assert got.shape == want.shape == (B, 1, L)
+    np.testing.assert_allclose(got, want, atol=5e-4 * np.abs(want).max())

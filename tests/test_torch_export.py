@@ -222,5 +222,8 @@ def test_loading_imports_no_model_code(audio_only):
 
 
 def test_mesh_devices_raise():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        E.export_serving(torch.nn.Identity(), 2, L, mesh_devices=2, device="cpu")
+    """A multi-device export is ported (``tests/test_torch_parallel.py``);
+    it raises where the batch does not shard evenly over the devices, as
+    JAX's does (``tests/test_export.py::test_mesh_export_requires_divisible_batch``)."""
+    with pytest.raises(ValueError, match="shard evenly"):
+        E.export_serving(torch.nn.Identity(), 3, L, mesh_devices=2, device="cpu")

@@ -488,9 +488,14 @@ def test_export_best_survives_preemption_before_first_epoch(tmp_path):
 
 
 def test_multi_device_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError):
-        Trainer(_system(build_model(_audio_conf(), device="cpu")), str(tmp_path), n_devices=2,
-                device="cpu")
+    """``n_devices=2`` no longer raises (data parallel is ported,
+    ``tests/test_torch_parallel.py``): without a process group it is
+    clamped to the one process there is, as JAX's ``make_mesh`` clamps it to
+    the devices there are, and the steps run on this device undistributed."""
+    trainer = Trainer(_system(build_model(_audio_conf(), device="cpu")), str(tmp_path),
+                      n_devices=2, device="cpu")
+    assert (trainer.mesh.size, trainer.mesh.index, trainer.mesh.distributed) == (1, 0, False)
+    assert trainer.system.replica is None
 
 
 # ------------------------------------------------------------ entry point
