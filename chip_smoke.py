@@ -191,7 +191,31 @@ Phases (any failure exits non-zero before the final line):
    evaluation); ``train.main`` for one epoch on phase 14's manifest,
    data-parallel. A ``parallel`` line with the card count (a run over two
    or more cards is still to come).
-22. a ``{"kernels": [...]}`` line (with each kernel's launches on every
+22. layer_zoo: the layers no shipped config uses, at full width.
+   RTFS-Net-4 with LSTM DualPathRNNs (``rnn_type: LSTM``, cuDNN's
+   recurrence in float32) served from embeddings at B = 1, 4, 16 in both
+   dtypes (K3 40 a forward, no K1; B=1 float32 against the CPU) and one
+   bfloat16 ``System.train_step`` at B = 4 (K3 120, no K2); one
+   DualPathRNN alone at B = 16 with the LSTM against the SRU (K1), and
+   the LSTM module against ``nn.LSTM`` with flattened weights (what the
+   per-call weight list costs). An AVNet whose audio net is a DPTNet
+   (hid 64, 4 shared repeats at the full 251 x 129 plane: an SRU
+   DualPathRNN along F, a GRU one along T, a GlobalAttention2D with its
+   group FFN) and whose video net is a 1-D DPTNet (GlobalAttentionRNN, a
+   GlobalAttention with a ConvolutionalRNN FFN), served the same way and
+   trained a step at B = 4, with the K1, K2 and K3 launches its config
+   gives (``dpt_launches``), K1, K2 and K3 held first against their plain
+   versions at its shapes (``check_zoo_kernels``). Every other new layer
+   alone at C = 64, B = 2
+   (BiLSTM2D, GlobalGALR, CBAMBlock, ShuffleAttention, CoTAttention, MLP,
+   Permutator, DepthwiseSeparableConvolution and ConvolutionalRNN in 2-D,
+   DualPathRNN Attn with its FFN): float32 against the CPU within
+   5e-4·max|ref|, bfloat16 finite, K3 where a 2-D depthwise conv runs.
+   All 29 optimizer names, 7 steps each over RTFS-Net-4's parameters
+   with one gradient, the card against the CPU within 1e-5·max|p|; a
+   ``System.train_step`` with ``ranger`` and one with ``adafactor``. A
+   ``layer_zoo`` line.
+23. a ``{"kernels": [...]}`` line (with each kernel's launches on every
    path), then ``{"ok": true, "device": {...}}`` last.
 
 Every comparison on the card runs with TF32 off (cuDNN convolutions and
@@ -280,6 +304,16 @@ BENCH_TIMEOUT_S, BENCH_SERVING_RTOL, BENCH_TIMED = 600, 0.15, 6
 # the parallel phase: the global batch of the DDP step, and its tolerance
 # against the plain step (at world size 1 the two are the same arithmetic)
 PARALLEL_BATCH, PARALLEL_TOL = 4, 1e-6
+# the layer_zoo phase: its DualPathRNN's (C, T, F) plane at B = 16 (the
+# TDANet's global features: the F pass is 57 windows of 125·B rows, the T
+# pass 118 of 64·B), the batch of the layers alone, the steps each
+# optimizer takes (the ranger variants' lookahead syncs at the 6th) and
+# the tolerance of the card against the CPU there
+ZOO_PLANE, ZOO_LAYER_BATCH, ZOO_OPT_STEPS, ZOO_OPT_TOL = (64, 125, 64), 2, 7, 1e-5
+# the DPTNet AVNet's kernel shapes at the full 251 x 129 plane: its SRU
+# DualPathRNN along F runs 122 windows of 251·B rows; its group FFN's 5x5
+# depthwise refiner runs on 128 channels
+ZOO_SRU_PASS, ZOO_DW_CHANNELS, ZOO_DW_KERNEL = (122, 251), 128, (5, 5)
 CHANNELS = 64  # TDANet hid_chan: the depthwise convs' channels
 DW_PLANES = {(251, 129): 3, (125, 64): 7}  # K3 launches per TDANet block, by (T, F)
 DW_KERNEL, DW_PADS = (4, 4), ((1, 2), (1, 2))
@@ -2689,6 +2723,360 @@ def check_parallel(root):
     return results[0]["launches"]
 
 
+def lstm_conf():
+    """RTFS-Net-4's ``audionet`` with ``rnn_type: LSTM`` in both DualPathRNNs."""
+    conf = rtfs4_conf()
+    for name in ("layer_1", "layer_2"):
+        conf["audio_params"]["layers"][name]["rnn_type"] = "LSTM"
+    return conf
+
+
+def dpt_conf():
+    """RTFS-Net-4's ``audionet`` with DPTNet separators: the audio one 2-D at
+    hid 64 over the bottleneck's 256 channels, 4 shared repeats of an SRU
+    DualPathRNN along F (hid 32, 4 layers), a GRU one along T and a
+    GlobalAttention2D with its group FFN; the video one 1-D, a
+    GlobalAttentionRNN and a GlobalAttention with a ConvolutionalRNN FFN."""
+    conf = rtfs4_conf()
+    srnn = conf["audio_params"]["layers"]["layer_1"]
+    conf["audio_params"] = {
+        "audio_net": "DPTNet", "hid_chan": 64, "repeats": 4, "shared": True, "is2d": True,
+        "layers": {
+            "layer_1": srnn,
+            "layer_2": {**srnn, "dim": 3, "rnn_type": "GRU", "num_layers": 1},
+            "layer_3": {"layer_type": "GlobalAttention2D", "kernel_size": 5,
+                        "group_ffn": True}}}
+    conf["video_params"] = {
+        "video_net": "DPTNet", "hid_chan": 64, "repeats": 1, "shared": True, "is2d": False,
+        "layers": {"layer_1": {"layer_type": "GlobalAttentionRNN"},
+                   "layer_2": {"layer_type": "GlobalAttention", "kernel_size": 3,
+                               "ffn_name": "ConvolutionalRNN"}}}
+    return conf
+
+
+def dpt_launches(conf):
+    """K1 and K3 launches of one serving forward of an AVNet whose audio net
+    is the DPTNet of ``conf``: every repeat runs each SRU DualPathRNN layer
+    (one K1 launch each) and each GlobalAttention2D's group FFN twice (one
+    K3 launch each: its 2-D depthwise refiner). A train step launches K2
+    forward twice per layer (the checkpointed block runs again in the
+    backward), K2 backward once, and K3 three times per conv (forward,
+    recompute, input gradient)."""
+    params = conf["audio_params"]
+    layers = params["layers"].values()
+    k1 = params["repeats"] * sum(l["num_layers"] for l in layers
+                                 if l["layer_type"] == "DualPathRNN" and l["rnn_type"] == "SRU")
+    k3 = params["repeats"] * sum(2 for l in layers
+                                 if l["layer_type"] == "GlobalAttention2D" and l["group_ffn"])
+    return ({"K1": k1, "K3": k3},
+            {"K2_forward": 2 * k1, "K2_backward": k1, "K3": 3 * k3})
+
+
+def zoo_train_step(label, model, want, dtype=None, optimizer=None):
+    """One counted ``System.train_step`` at B = TRAIN_BATCHES[0] (dropout
+    masks from a card generator), then 3 timed ones; fails on a non-finite
+    loss or an unmoved parameter. Returns the step's launches and numbers."""
+    import torch
+
+    dtype = dtype or torch.float32
+    system = make_system(model, dtype, optimizer=optimizer)
+    batch = train_batch(TRAIN_BATCHES[0], torch.Generator(device="cuda").manual_seed(21))
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+
+    def step():
+        out = system.train_step(batch, generator=torch.Generator(device="cuda").manual_seed(4))
+        loss, gnorm = float(out["loss"]), float(out["grad_norm"])
+        if not (math.isfinite(loss) and math.isfinite(gnorm)):
+            fail(f"{label}: loss {loss}, grad_norm {gnorm}")
+        return loss
+
+    reset_launch_counts()
+    loss = launches_of(step, want, label)
+    launches = launch_counts()
+    unmoved = [n for n, p in model.named_parameters() if torch.equal(p, before[n])]
+    if len(unmoved) == len(before):
+        fail(f"{label}: no parameter moved")
+    torch.cuda.reset_peak_memory_stats()
+    times = host_ms(step, 3)
+    return launches, {"B": TRAIN_BATCHES[0], "dtype": dtype_name(dtype), "loss": loss,
+                      "ms_per_step_median": times[1], "ms_per_step_min": times[0],
+                      "peak_mem_GiB": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def compare_rnn_routes():
+    """One DualPathRNN along F at RTFS-Net-4's plane, B = 16: the LSTM
+    (cuDNN in float32; cuDNN takes no bfloat16 RNN, so PyTorch's per-step
+    CUDA cells there) against the SRU (K1), device ms by CUDA events; and
+    the port's LSTM, which passes its weights cast per call as a list, against
+    ``nn.LSTM`` on one flattened buffer, on the same windows."""
+    import torch
+
+    from rtfs_net_tpu_torch.models import init_weights
+    from rtfs_net_tpu_torch.models.layers import DualPathRNN
+    from rtfs_net_tpu_torch.ops.conv import unfold_1d
+
+    C, T, F_ = ZOO_PLANE
+    B = SERVE_BATCHES[-1]
+    layer = rtfs4_conf()["audio_params"]["layers"]["layer_1"]
+    kw = {k: v for k, v in layer.items() if k != "layer_type"}
+    x = torch.randn((B, C, T, F_), generator=torch.Generator(device="cuda").manual_seed(22),
+                    device="cuda")
+    out = {"bf16_cudnn_acceptable": bool(torch.backends.cudnn.is_acceptable(
+        x.to(torch.bfloat16)))}
+    for rnn_type in ("SRU", "LSTM"):
+        m = init_weights(DualPathRNN(C, **{**kw, "rnn_type": rnn_type}),
+                         torch.Generator().manual_seed(0)).cuda().eval()
+        for dtype in (torch.float32, torch.bfloat16):
+            xd = x.to(dtype)
+            with torch.no_grad():
+                out[f"{rnn_type}_{dtype_name(dtype)}_ms"] = event_ms(lambda: m(xd), 5)
+    lstm = m.rnn
+    ref = torch.nn.LSTM(C * kw["kernel_size"], kw["hid_chan"], kw["num_layers"],
+                        bidirectional=True).cuda()
+    ref.load_state_dict(lstm.state_dict())
+    seq = unfold_1d(x.transpose(-2, -1).permute(0, 3, 1, 2).reshape(B * T, C, F_),
+                    kw["kernel_size"], kw["stride"]).permute(2, 0, 1).contiguous()
+    with torch.no_grad():
+        err = float((lstm(seq) - ref(seq)[0]).abs().max())
+        out["lstm_weight_list_ms"] = event_ms(lambda: lstm(seq), 5)
+        out["lstm_flattened_ms"] = event_ms(lambda: ref(seq), 5)
+    out["lstm_vs_nn_lstm_max_abs_err"] = err
+    if not err <= 1e-5:
+        fail(f"the port's LSTM differs from nn.LSTM by {err}")
+    print("layer_zoo rnn routes " + json.dumps(out))
+    return out
+
+
+def zoo_layers():
+    """The new layers alone at C = CHANNELS, B = ZOO_LAYER_BATCH, on
+    RTFS-Net-4's (125, 64) plane: name -> (module, K3 launches a forward)."""
+    from rtfs_net_tpu_torch.models import layers as L
+
+    C, T, F_ = ZOO_PLANE
+    return {
+        "BiLSTM2D": (L.BiLSTM2D(C, 32), 0),
+        "GlobalGALR": (L.GlobalGALR(C, group_ffn=True), 1),
+        "CBAMBlock": (L.CBAMBlock(C), 0),
+        "ShuffleAttention": (L.ShuffleAttention(C), 0),
+        "CoTAttention": (L.CoTAttention(C), 0),
+        "MLP": (L.MLP(C, (T, F_), 8), 0),
+        "Permutator": (L.Permutator(C, (T, F_), 8), 0),
+        "DepthwiseSeparableConvolution": (L.DepthwiseSeparableConvolution(
+            C, C, 5, norm_type="gLN", act_type="PReLU", is2d=True), 1),
+        "ConvolutionalRNN": (L.ConvolutionalRNN(C, 2 * C, 5, is2d=True), 2),
+        "DualPathRNN_Attn_ffn": (L.DualPathRNN(C, 32, 3, rnn_type="Attn", apply_ffn=True), 0),
+    }
+
+
+def check_zoo_layers():
+    """Each layer of ``zoo_layers`` in float32 against the CPU within
+    5e-4·max|ref|, in bfloat16 finite, with its K3 launches."""
+    import torch
+
+    from rtfs_net_tpu_torch.models import init_weights
+
+    C, T, F_ = ZOO_PLANE
+    x = torch.randn((ZOO_LAYER_BATCH, C, T, F_),
+                    generator=torch.Generator(device="cuda").manual_seed(23), device="cuda")
+    rows = {}
+    reset_launch_counts()
+    for name, (module, k3) in zoo_layers().items():
+        module = init_weights(module, torch.Generator().manual_seed(0)).eval()
+        ref_module = copy.deepcopy(module)
+        module = module.cuda()
+        with torch.no_grad():
+            got = launches_of(lambda: module(x), {"K3": k3}, f"layer_zoo {name}")
+            ref = ref_module(x.cpu())
+            half = module(x.to(torch.bfloat16))
+        err, scale = float((got.cpu() - ref).abs().max()), float(ref.abs().max())
+        rows[name] = {"max_abs_err": err, "max_abs_ref": scale, "K3": k3,
+                      "bf16_finite": bool(torch.isfinite(half).all())}
+        print(f"layer_zoo {name} B={ZOO_LAYER_BATCH} float32 vs CPU: max_abs_err {err}, "
+              f"max|ref| {scale}, tol 5e-4*max|ref| = {5e-4 * scale}")
+        if tuple(got.shape) != tuple(x.shape) or not err <= 5e-4 * scale:
+            fail(f"layer_zoo {name}: {tuple(got.shape)} disagrees with the CPU")
+        if not rows[name]["bf16_finite"]:
+            fail(f"layer_zoo {name}: non-finite bfloat16 output")
+    return launch_counts(), rows
+
+
+def check_zoo_optimizers():
+    """Every optimizer name of the registry, ZOO_OPT_STEPS steps over
+    RTFS-Net-4's parameters with one gradient (one B=1 backward), on the
+    card and on the CPU from the same start: within ZOO_OPT_TOL·max|p|."""
+    import torch
+
+    from rtfs_net_tpu_torch.models import build_model
+    from rtfs_net_tpu_torch.system import make_optimizer, optimizers
+
+    model = build_model(rtfs4_conf(dropout=0.0), device="cuda",
+                        generator=torch.Generator().manual_seed(0))
+    make_system(model, torch.float32).backward(
+        train_batch(1, torch.Generator(device="cuda").manual_seed(24)))
+    start = [p.detach().clone() for p in model.parameters()]
+    grads = [p.grad.clone() for p in model.parameters()]
+    optim = rtfs4_optim()
+    rows = {}
+    for name in optimizers.NAMES:
+        result = {}
+        for device in ("cuda", "cpu"):
+            params = [torch.nn.Parameter(p.to(device).clone()) for p in start]
+            opt = make_optimizer(params, **{**optim, "optimizer": name})
+            t0 = time.perf_counter()
+            for _ in range(ZOO_OPT_STEPS):
+                for p, g in zip(params, grads):
+                    p.grad = g.to(device)
+                opt.step()
+            if device == "cuda":
+                torch.cuda.synchronize()
+            result[device] = ([p.detach().cpu() for p in params],
+                              (time.perf_counter() - t0) * 1e3 / ZOO_OPT_STEPS)
+        scale = max(float(p.abs().max()) for p in result["cpu"][0])
+        err = max(float((a - b).abs().max()) for a, b in zip(*(result[d][0] for d in
+                                                                 ("cuda", "cpu"))))
+        moved = max(float((a - b.cpu()).abs().max()) for a, b in zip(result["cuda"][0], start))
+        rows[name] = {"max_abs_err": err, "max_abs_p": scale, "max_move": moved,
+                      "ms_per_step_card": result["cuda"][1]}
+        if not (err <= ZOO_OPT_TOL * scale and moved > 0):
+            fail(f"optimizer {name}: card vs CPU {err} (tol {ZOO_OPT_TOL * scale}), "
+                 f"moved {moved}")
+    worst = max(rows, key=lambda n: rows[n]["max_abs_err"] / rows[n]["max_abs_p"])
+    print(f"layer_zoo optimizers: {len(rows)} names, {ZOO_OPT_STEPS} steps each, card vs CPU "
+          f"worst {worst}: {json.dumps(rows[worst])}")
+    return rows
+
+
+def rtfs4_optim():
+    import yaml
+
+    with open(CONFIG) as f:
+        return yaml.safe_load(f)["optim"]
+
+
+def check_zoo_kernels():
+    """K1, K2 and K3 against their plain versions at the DPTNet AVNet's
+    shapes: K1 at (122, k·64, 251·B) for B = 1, 4, 16, K2's forward and
+    backward at B = TRAIN_BATCHES[0], k = 4 and 3, and K3's forward and dx
+    at (B, 128, 251, 129) with the 5x5 kernel for the serving and the train
+    batch, in both dtypes; K3's device time at B = 16 beside
+    ``F.conv2d(groups=C)``'s. Returns the rows."""
+    import torch
+    import torch.nn.functional as F
+
+    ksru, ktrain, kdw, _ = kernel_modules()
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    L, per_utt = ZOO_SRU_PASS
+    rows = []
+    for B, k, dtype in itertools.product(SERVE_BATCHES, (4, 3), (torch.float32, torch.bfloat16)):
+        sets, v, b = sru_inputs(L, per_utt * B, k, dtype, gen, 1)
+        u, skip = sets[0]
+        got = ksru.sru_stack_layer(u, skip, v, b, H=H, k=k, ndir=2)
+        ok, err = sru_tolerance_ok(got, ksru.sru_stack_layer_ref(u, skip, v, b, H=H, k=k,
+                                                                ndir=2), dtype)
+        rows.append({"kernel": "K1", "B": B, "k": k, "dtype": dtype_name(dtype),
+                     "max_abs_err": err})
+        if not ok:
+            fail(f"sru_stack_layer at the DPTNet shape B={B} k={k} {dtype}: {err}")
+    B = TRAIN_BATCHES[0]
+    for k, dtype in itertools.product((4, 3), (torch.float32, torch.bfloat16)):
+        sets, v, b = sru_inputs(L, per_utt * B, k, dtype, gen, 1)
+        u, skip = sets[0]
+        dh = torch.randn((L, 2 * H, per_utt * B), generator=gen, device="cuda").to(dtype)
+        kw = dict(H=H, k=k, ndir=2)
+        h, c = ktrain.sru_train_forward(u, skip, v, b, **kw)
+        grads = ktrain.sru_train_backward(u, skip, c, v, b, dh, **kw)
+        want_h, want_c = ktrain.sru_train_forward_ref(u, skip, v, b, **kw)
+        want = ktrain.sru_train_backward_ref(u, skip, c, v, b, dh, **kw)
+        errs = {}
+        for part, g, w in (("h", h, want_h), ("c", c, want_c), ("du", grads[0], want[0]),
+                           ("dskip", grads[1], want[1])):
+            if w is not None:
+                ok, errs[part] = tolerance_ok(g, w, dtype)
+                if not ok:
+                    fail(f"sru_train {part} at the DPTNet shape k={k} {dtype}: {errs[part]}")
+        gate_rtol = 1e-4 if dtype == torch.float32 else 1e-3
+        for part, g, w in (("dv", grads[2], want[2]), ("db", grads[3], want[3])):
+            errs[part] = float((g - w).abs().max())
+            if not errs[part] <= gate_rtol * float(w.abs().max()):
+                fail(f"sru_train {part} at the DPTNet shape k={k} {dtype}: {errs[part]}")
+        rows.append({"kernel": "K2", "B": B, "k": k, "dtype": dtype_name(dtype),
+                     "errors": errs})
+    pads = tuple(((kk - 1) // 2, kk - 1 - (kk - 1) // 2) for kk in ZOO_DW_KERNEL)
+    for B, dtype in itertools.product((SERVE_BATCHES[-1], TRAIN_BATCHES[0]),
+                                      (torch.float32, torch.bfloat16)):
+        shape = (B, ZOO_DW_CHANNELS, *next(iter(DW_PLANES)))  # the full (251, 129) plane
+        err, dx_err = check_dw_forward_dx(shape, ZOO_DW_KERNEL, pads, 0, dtype, gen,
+                                          "DPTNet group FFN")
+        row = {"kernel": "K3", "x": shape, "dtype": dtype_name(dtype), "max_abs_err": err,
+               "dx_max_abs_err": dx_err}
+        if B == SERVE_BATCHES[-1]:
+            x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            w = torch.randn((shape[1], 1, *ZOO_DW_KERNEL), generator=gen, device="cuda")
+            w_lib = w.to(dtype)
+            with torch.no_grad():
+                row["ms"] = event_ms(lambda: kdw.dw_conv2d_same(x, w, pads), reps=10)
+                row["library_ms"] = event_ms(
+                    lambda: F.conv2d(x, w_lib, padding=pads[0][0], groups=shape[1]), reps=10)
+        rows.append(row)
+    print("layer_zoo kernels at the DPTNet shapes " + json.dumps(rows))
+    return rows
+
+
+def check_layer_zoo(smi):
+    """Phase 22: the layer zoo at full width. Returns each path's launch
+    counts, counted from 0 just before it."""
+    import torch
+
+    from rtfs_net_tpu_torch.models import build_model
+
+    paths, out = {}, {"card": smi}
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    requests = {B: (torch.randn((B, SAMPLES), generator=gen, device="cuda"),
+                    0.1 * torch.randn((B, LIP_CHANNELS, LIP_FRAMES), generator=gen,
+                                      device="cuda"))
+                for B in SERVE_BATCHES}
+
+    # (a) RTFS-Net-4 with LSTM DualPathRNNs: K3 only
+    model = build_model(lstm_conf(), device="cuda", generator=torch.Generator().manual_seed(0))
+    paths["lstm_serving"], outs, out["lstm_serving"] = check_serving(
+        "layer_zoo serving (LSTM)", model, requests, want={"K3": DW_LAUNCHES})
+    del outs
+    paths["lstm_train"], out["lstm_train"] = zoo_train_step(
+        "layer_zoo train step (LSTM)", model, {"K3": 3 * DW_LAUNCHES}, torch.bfloat16)
+    del model
+    torch.cuda.empty_cache()
+    out["rnn_routes"] = compare_rnn_routes()
+
+    # (b) the DPTNet AVNet: its kernels at its shapes, then the model
+    out["dpt_kernels"] = check_zoo_kernels()
+    conf = dpt_conf()
+    serve_want, train_want = dpt_launches(conf)
+    model = build_model(conf, device="cuda", generator=torch.Generator().manual_seed(0))
+    paths["dpt_serving"], outs, out["dpt_serving"] = check_serving(
+        "layer_zoo serving (DPTNet)", model, requests, want=serve_want)
+    del outs
+    paths["dpt_train"], out["dpt_train"] = zoo_train_step(
+        "layer_zoo train step (DPTNet)", model, train_want)
+    out["dpt_launches"] = {"serving": serve_want, "train": train_want}
+    del model, requests
+    torch.cuda.empty_cache()
+
+    # (c) every other layer alone; (d) the optimizers
+    paths["layers"], out["layers"] = check_zoo_layers()
+    out["optimizers"] = check_zoo_optimizers()
+    for name in ("ranger", "adafactor"):
+        model = build_model(rtfs4_conf(), device="cuda", generator=torch.Generator().manual_seed(0))
+        paths[f"train_{name}"], out[f"train_{name}"] = zoo_train_step(
+            f"layer_zoo train step ({name})", model,
+            {"K2_forward": 2 * SRU_LAUNCHES, "K2_backward": SRU_LAUNCHES,
+             "K3": 3 * DW_LAUNCHES}, optimizer=name)
+        del model
+    torch.cuda.empty_cache()
+    out["launches"] = paths
+    print("layer_zoo " + json.dumps(out))
+    return paths
+
+
 def main():
     import tempfile
 
@@ -2757,12 +3145,14 @@ def main():
         bench_launches = check_bench(bench_point)
         torch.cuda.empty_cache()
         parallel_launches = check_parallel(root)
+    zoo = check_layer_zoo(smi)
     by_path = {"serving": launches, "serving_from_frames": frame_launches,
                "per_direction": direction_launches, "train": train_launches,
                "fit": fit_launches, "evaluate": eval_launches, "separate": separate_launches,
                "export": export_launches, "ctcnet": ctcnet_launches,
                **{f"video_zoo_{path}": counts for path, counts in zoo_launches.items()},
-               "bench": bench_launches, "parallel": parallel_launches}
+               "bench": bench_launches, "parallel": parallel_launches,
+               **{f"layer_zoo_{path}": counts for path, counts in zoo.items()}}
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     # no single PyTorch call computes an SRU recurrence or its backward;

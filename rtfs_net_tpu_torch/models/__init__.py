@@ -1,4 +1,5 @@
-"""Model construction: ``build_model(conf)`` -> an AVNet and
+"""Model construction: ``build_model(conf)`` -> an AVNet (or another
+model of the registry, reference ``src/models/__init__.py:15-42``) and
 ``build_video_model(conf)`` -> its lip-reading video model, each in eval
 mode on the requested device (``cuda`` unless the caller passes
 ``device="cpu"``)."""
@@ -13,6 +14,27 @@ from torch import nn
 from . import videomodels
 from .avnet import AVNet
 from .layers import accepted_kwargs
+
+
+_REGISTRY = {"avnet": AVNet}
+
+
+def register_model(custom_model):
+    """Add a model class to the registry under its (case-insensitive) name."""
+    name = getattr(custom_model, "__name__", None) or type(custom_model).__name__
+    if name.lower() in _REGISTRY:
+        raise ValueError(f"Model {name} already registered")
+    _REGISTRY[name.lower()] = custom_model
+    return custom_model
+
+
+def get(identifier):
+    if callable(identifier):
+        return identifier
+    cls = _REGISTRY.get(identifier.lower()) if isinstance(identifier, str) else None
+    if cls is None:
+        raise ValueError(f"Could not interpret model identifier: {identifier}")
+    return cls
 
 
 def resolve_device(device) -> torch.device:
@@ -33,14 +55,18 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     return model
 
 
-def build_model(conf: dict, device="cuda", generator: Optional[torch.Generator] = None) -> AVNet:
-    """AVNet from a YAML config (the whole file or its ``audionet`` section),
-    weights drawn from ``generator`` (default: seed 0), in eval mode."""
+def build_model(conf: dict, device="cuda", generator: Optional[torch.Generator] = None,
+                model_name="AVNet") -> nn.Module:
+    """The registry's ``model_name`` (default AVNet) from a YAML config (the
+    whole file or its ``audionet`` section), dropping keys its constructor
+    does not take, weights drawn from ``generator`` (default: seed 0), in
+    eval mode."""
     device = resolve_device(device)
+    cls = get(model_name)
     conf = conf.get("audionet", conf)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
-    model = init_weights(AVNet(**accepted_kwargs(AVNet, conf)), generator)
+    model = init_weights(cls(**accepted_kwargs(cls, conf)), generator)
     return model.to(device).eval()
 
 

@@ -20,6 +20,16 @@ def unsqueeze_to_3d(x):
     return x[:, None] if x.dim() == 2 else x
 
 
+def unsqueeze_to_2d(x):
+    """(L,) -> (1, L); (B, 1, L) -> (B, L); (B, L) as it is."""
+    if x.dim() == 1:
+        return x.reshape(1, -1)
+    if x.dim() == 3:
+        assert x.shape[1] == 1
+        return x.reshape(x.shape[0], -1)
+    return x
+
+
 def pad_to_multiple(x, lcm: int):
     """Zero-pad the last dim up to a multiple of ``lcm`` (a Python int from
     the static shape, so an exported program pads by a constant)."""
@@ -72,7 +82,7 @@ class STFTEncoder(nn.Module):
                                 norm_type=norm_type, xavier_init=True, bias=bias, is2d=True)
 
     def forward(self, x):
-        x = x.reshape(-1, x.shape[-1])  # (B, L); a (B, 1, L) or (L,) input folds
+        x = unsqueeze_to_2d(x)
         re, im = stft_ops.stft(x, self.win, self.hop_length)  # (B, F, T) each
         spec = torch.stack([re, im], dim=1).transpose(2, 3).to(x.dtype)
         return self.conv(spec)

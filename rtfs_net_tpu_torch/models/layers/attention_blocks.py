@@ -15,10 +15,10 @@ import numpy as np
 import torch
 from torch import nn
 
-from ...ops.conv import DropPath, Linear
+from ...ops.conv import Conv, DropPath, Linear
 from ...ops.dropout import dropout
-from ...ops.normalizations import LayerNorm
-from .conv_blocks import ConvActNorm, FeedForwardNetwork
+from ...ops.normalizations import BatchNorm2d, LayerNorm
+from .conv_blocks import ConvActNorm
 
 
 @functools.lru_cache(maxsize=16)
@@ -67,6 +67,10 @@ class MultiheadAttention(nn.Module):
         attn = dropout(attn, self.dropout, self.training)
         out = self.out_proj((attn @ v).transpose(1, 2).reshape(B, L, E))
         return out if self.batch_first else out.transpose(0, 1)
+
+
+# the JAX package's name for the same module
+TorchMultiheadAttention = MultiheadAttention
 
 
 class MultiHeadSelfAttention(nn.Module):
@@ -140,18 +144,152 @@ class MultiHeadSelfAttention2D(nn.Module):
 
 
 class GlobalAttention(nn.Module):
-    """MHSA + conv-FFN on (B, C, T), the video-branch layer
+    """MHSA + conv-FFN (``ffn_name``: FeedForwardNetwork or
+    ConvolutionalRNN) on (B, C, T), the video-branch layer
     (``attention.py:192-220``)."""
 
     def __init__(self, in_chan: int, hid_chan: Optional[int] = None,
                  ffn_name: str = "FeedForwardNetwork", kernel_size: int = 5,
                  n_head: int = 8, dropout: float = 0.1, pos_enc: bool = True):
         super().__init__()
-        if ffn_name != "FeedForwardNetwork":
-            raise NotImplementedError(f"GlobalAttention ffn_name={ffn_name!r} is not ported yet")
+        from . import get_ffn
+
         hid = hid_chan if hid_chan is not None else 2 * in_chan
         self.MHSA = MultiHeadSelfAttention(in_chan, n_head, dropout, pos_enc)
-        self.FFN = FeedForwardNetwork(in_chan, hid, kernel_size, dropout=dropout)
+        self.FFN = get_ffn(ffn_name)(in_chan, hid, kernel_size, dropout=dropout)
 
     def forward(self, x):
         return self.FFN(self.MHSA(x))
+
+
+class GlobalAttention2D(nn.Module):
+    """MHSA (+ FFN) over T with F folded into the batch, then over F with
+    T folded in, on (B, C, T, F) (``attention.py:223-280``). With
+    ``group_ffn`` one 2-D FFN, the same module, follows each of the two."""
+
+    def __init__(self, in_chan: int, hid_chan: Optional[int] = None,
+                 ffn_name: str = "FeedForwardNetwork", kernel_size: int = 5,
+                 n_head: int = 8, dropout: float = 0.1, single_ffn: bool = True,
+                 group_ffn: bool = False, pos_enc: bool = True):
+        super().__init__()
+        from . import get_ffn
+
+        hid = hid_chan if hid_chan is not None else 2 * in_chan
+        ffn = get_ffn(ffn_name)
+        self.time_MHSA = MultiHeadSelfAttention(in_chan, n_head, dropout, pos_enc)
+        self.freq_MHSA = MultiHeadSelfAttention(in_chan, n_head, dropout, pos_enc)
+        self.time_FFN = ffn(in_chan, hid, kernel_size, dropout=dropout) if single_ffn else None
+        self.freq_FFN = ffn(in_chan, hid, kernel_size, dropout=dropout) if single_ffn else None
+        self.group_FFN = (get_ffn("FeedForwardNetwork")(in_chan, hid, kernel_size,
+                                                        dropout=dropout, is2d=True)
+                          if group_ffn else None)
+
+    def forward(self, x):
+        B, C, T, F = x.shape
+        y = self.time_MHSA(x.permute(0, 3, 1, 2).reshape(B * F, C, T))
+        if self.time_FFN is not None:
+            y = self.time_FFN(y)
+        y = y.reshape(B, F, C, T).permute(0, 2, 3, 1)
+        if self.group_FFN is not None:
+            y = self.group_FFN(y)
+        z = self.freq_MHSA(y.transpose(1, 2).reshape(B * T, C, F))
+        if self.freq_FFN is not None:
+            z = self.freq_FFN(z)
+        z = z.reshape(B, T, C, F).transpose(1, 2)
+        if self.group_FFN is not None:
+            z = self.group_FFN(z)
+        return z
+
+
+class _ChannelAttention(nn.Module):
+    def __init__(self, channel: int, reduction: int):
+        super().__init__()
+        self.se = nn.Sequential(Conv(channel, channel // reduction, 1, ndim=2, bias=False),
+                                nn.ReLU(),
+                                Conv(channel // reduction, channel, 1, ndim=2, bias=False))
+
+    def forward(self, x):
+        return torch.sigmoid(self.se(x.amax((2, 3), keepdim=True))
+                             + self.se(x.mean((2, 3), keepdim=True)))
+
+
+class _SpatialAttention(nn.Module):
+    def __init__(self, kernel_size: int):
+        super().__init__()
+        self.conv = Conv(2, 1, kernel_size, ndim=2, padding=kernel_size // 2)
+
+    def forward(self, x):
+        return torch.sigmoid(self.conv(torch.cat([x.amax(1, keepdim=True),
+                                                  x.mean(1, keepdim=True)], 1)))
+
+
+class CBAMBlock(nn.Module):
+    """Channel then spatial squeeze attention with a residual
+    (``attention.py:283-343``): ``ca.se`` is the shared MLP over the max-
+    and mean-pooled channel descriptors, ``sa.conv`` the k x k conv over
+    the channel max and mean."""
+
+    def __init__(self, in_chan: int = 512, reduction: int = 16, kernel_size: int = 49):
+        super().__init__()
+        self.ca = _ChannelAttention(in_chan, reduction)
+        self.sa = _SpatialAttention(kernel_size)
+
+    def forward(self, x):
+        y = x * self.ca(x)
+        return y * self.sa(y) + x
+
+
+class ShuffleAttention(nn.Module):
+    """Grouped channel and spatial attention with a channel shuffle
+    (``attention.py:346-408``). ``gn`` is ``GroupNorm(cpg, cpg)``: each
+    channel normalized over the plane."""
+
+    def __init__(self, in_chan: int = 512, G: int = 8):
+        super().__init__()
+        self.G = G
+        cpg = in_chan // (2 * G)
+        self.gn = nn.GroupNorm(cpg, cpg)
+        self.cweight = nn.Parameter(torch.zeros(1, cpg, 1, 1))
+        self.cbias = nn.Parameter(torch.ones(1, cpg, 1, 1))
+        self.sweight = nn.Parameter(torch.zeros(1, cpg, 1, 1))
+        self.sbias = nn.Parameter(torch.ones(1, cpg, 1, 1))
+
+    def forward(self, x):
+        B, C, H, W = x.shape
+        dt = x.dtype
+        x0, x1 = x.reshape(B * self.G, -1, H, W).chunk(2, dim=1)
+        xc = self.cweight.to(dt) * x0.mean((2, 3), keepdim=True) + self.cbias.to(dt)
+        xc = x0 * torch.sigmoid(xc)
+        mean = x1.mean((2, 3), keepdim=True)
+        var = (x1 - mean).square().mean((2, 3), keepdim=True)
+        xs = (x1 - mean) / torch.sqrt(var + self.gn.eps)
+        xs = xs * self.gn.weight.to(dt).view(1, -1, 1, 1) + self.gn.bias.to(dt).view(1, -1, 1, 1)
+        xs = x1 * torch.sigmoid(self.sweight.to(dt) * xs + self.sbias.to(dt))
+        out = torch.cat([xc, xs], dim=1).reshape(B, 2, -1, H, W)
+        return out.transpose(1, 2).reshape(B, -1, H, W)
+
+
+class CoTAttention(nn.Module):
+    """Contextual transformer attention (``attention.py:411-446``): a
+    ``groups=4`` k x k key conv, a 1x1 value conv and a two-conv attention
+    over [keys, x], each with a BatchNorm."""
+
+    def __init__(self, in_chan: int = 512, kernel_size: int = 3):
+        super().__init__()
+        C, k, factor = in_chan, kernel_size, 4
+        self.kernel_size = k
+        self.key_embed = nn.Sequential(
+            Conv(C, C, k, ndim=2, padding=k // 2, groups=4, bias=False), BatchNorm2d(C),
+            nn.ReLU())
+        self.value_embed = nn.Sequential(Conv(C, C, 1, ndim=2, bias=False), BatchNorm2d(C))
+        self.attention_embed = nn.Sequential(
+            Conv(2 * C, 2 * C // factor, 1, ndim=2, bias=False), BatchNorm2d(2 * C // factor),
+            nn.ReLU(), Conv(2 * C // factor, k * k * C, 1, ndim=2))
+
+    def forward(self, x):
+        B, C, H, W = x.shape
+        k1 = self.key_embed(x)
+        v = self.value_embed(x).reshape(B, C, -1)
+        att = self.attention_embed(torch.cat([k1, x], dim=1))
+        att = att.reshape(B, C, self.kernel_size ** 2, H, W).mean(2).reshape(B, C, -1)
+        return k1 + (torch.softmax(att, dim=-1) * v).reshape(B, C, H, W)

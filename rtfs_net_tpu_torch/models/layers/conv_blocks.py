@@ -4,6 +4,7 @@ from __future__ import annotations
 
 from typing import Any, Optional, Union
 
+import torch
 from torch import nn
 
 from ...ops import activations, normalizations
@@ -15,9 +16,16 @@ def make_norm(norm_type, chan: int, n_freqs: int = -1) -> nn.Module:
     cls = normalizations.get(norm_type)
     if cls is normalizations.LayerNormalization4D:
         return cls(chan, n_freqs if n_freqs > 0 else 1)
-    if cls is nn.Identity:
+    if cls is normalizations.Identity:
         return cls()
     return cls(chan)
+
+
+def apply_norm(norm: nn.Module, x, train=None):
+    """``norm(x)``. The JAX package passes ``train`` to pick a BatchNorm's
+    statistics; here the module's own mode picks them, so ``train`` is
+    not read."""
+    return norm(x)
 
 
 class ConvNormAct(nn.Module):
@@ -94,3 +102,55 @@ class FeedForwardNetwork(nn.Module):
     def forward(self, x):
         y = self.drop_path(self.refiner(self.encoder(x)))
         return self.drop_path(self.decoder(y)) + x
+
+
+class DepthwiseSeparableConvolution(nn.Module):
+    """Depthwise conv, pointwise conv, then act and norm
+    (``conv_layers.py:10-62``); the identity for kernel_size <= 0."""
+
+    def __init__(self, in_chan: int, out_chan: int, kernel_size: int = -1,
+                 stride: int = 1, norm_type: Any = None, act_type: Any = None,
+                 xavier_init: bool = False, is2d: bool = False):
+        super().__init__()
+        ks = kernel_size[0] if hasattr(kernel_size, "__len__") else kernel_size
+        self.identity = ks <= 0
+        if self.identity:
+            return
+        self.depthwise_conv = ConvNormAct(in_chan, in_chan, kernel_size, stride=stride,
+                                          groups=in_chan, xavier_init=xavier_init, is2d=is2d)
+        self.pointwise_conv = ConvNormAct(in_chan, out_chan, 1, xavier_init=xavier_init,
+                                          is2d=is2d)
+        self.act = activations.get(act_type)()
+        self.norm = make_norm(norm_type, out_chan)
+
+    def forward(self, x):
+        if self.identity:
+            return x
+        return self.norm(self.act(self.pointwise_conv(self.depthwise_conv(x))))
+
+
+class ConvolutionalRNN(nn.Module):
+    """A pseudo-RNN FFN (``conv_layers.py:262-316``): 1x1 expand, a
+    depthwise conv of the sequence and one of the flipped sequence
+    (the second's output stays flipped), concatenated, 1x1 contract,
+    residual; DropPath as in ``FeedForwardNetwork``."""
+
+    def __init__(self, in_chan: int, hid_chan: int, kernel_size: int = 5,
+                 norm_type: Any = "gLN", act_type: Any = "ReLU",
+                 dropout: float = 0.0, is2d: bool = False):
+        super().__init__()
+        self.encoder = ConvNormAct(in_chan, hid_chan, 1, norm_type=norm_type,
+                                   bias=False, is2d=is2d)
+        self.forward_pass = ConvNormAct(hid_chan, hid_chan, kernel_size, groups=hid_chan,
+                                        act_type=act_type, is2d=is2d)
+        self.backward_pass = ConvNormAct(hid_chan, hid_chan, kernel_size, groups=hid_chan,
+                                         act_type=act_type, is2d=is2d)
+        self.decoder = ConvNormAct(hid_chan * 2, in_chan, 1, norm_type=norm_type,
+                                   bias=False, is2d=is2d)
+        self.drop_path = DropPath(dropout)
+        self.flip_dims = (2, 3) if is2d else (2,)
+
+    def forward(self, x):
+        y = self.encoder(x)
+        y = torch.cat([self.forward_pass(y), self.backward_pass(y.flip(self.flip_dims))], 1)
+        return self.drop_path(self.decoder(self.drop_path(y))) + x

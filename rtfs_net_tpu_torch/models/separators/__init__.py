@@ -1,9 +1,9 @@
-"""Separator registry (reference ``src/models/separators/__init__.py``),
-limited to the separators the port has so far."""
+"""Separator registry (reference ``src/models/separators/__init__.py``)."""
 from __future__ import annotations
 
 from torch import nn
 
+from .dpt import DPTNet, DPTNetBlock
 from .frcnn import FRCNN, FRCNNBlock
 from .tdanet import TDANet, TDANetBlock
 
@@ -18,7 +18,7 @@ class IdentitySeparator(nn.Module):
         return x
 
 
-_REGISTRY = {"TDANet": TDANet, "FRCNN": FRCNN}
+_REGISTRY = {"TDANet": TDANet, "FRCNN": FRCNN, "DPTNet": DPTNet}
 
 
 def get(identifier):

@@ -18,6 +18,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from . import build_model
+from . import get as get_model
 
 _PREFIX = "audio_model."
 
@@ -55,8 +56,8 @@ def load_model(path: str, device="cuda", conf: Optional[Dict[str, Any]] = None
 
     ``path`` holds one of:
 
-    * a blob this package wrote (``model_args`` are AVNet's constructor
-      arguments);
+    * a blob this package wrote (``model_args`` are the constructor
+      arguments of ``model_name``, a name of the model registry);
     * a reference ``best_model.pth``, whose ``model_args`` is the
       reference's reflective ``get_config()`` dict (sections keyed
       ``encoder``, ``audio_bottleneck``, ...), not constructor arguments;
@@ -64,7 +65,7 @@ def load_model(path: str, device="cuda", conf: Optional[Dict[str, Any]] = None
       ``audio_model.`` prefix (only those keys are taken), or a bare state
       dict.
 
-    As ``scripts/import_checkpoint.py:53-72`` rules, the constructor
+    As ``scripts/import_checkpoint.py:53-72`` rules, an AVNet's constructor
     arguments are the file's ``model_args`` when they hold
     ``enc_dec_params``, else ``conf["audionet"]`` (``conf`` is a whole
     config or its ``audionet`` section). The state dict loads strictly.
@@ -74,12 +75,12 @@ def load_model(path: str, device="cuda", conf: Optional[Dict[str, Any]] = None
     state_dict = blob["state_dict"] if nested else blob
     model_name = blob.get("model_name", "AVNet") if nested else "AVNet"
     model_args = blob.get("model_args") if nested else None
-    if model_name != "AVNet":
-        raise ValueError(f"{path}: model {model_name!r} is not ported")
+    get_model(model_name)  # an unregistered name fails before anything is built
     if any(k.startswith(_PREFIX) for k in state_dict):
         state_dict = {k[len(_PREFIX):]: v for k, v in state_dict.items()
                       if k.startswith(_PREFIX)}
-    if not (isinstance(model_args, dict) and "enc_dec_params" in model_args):
+    is_avnet = model_name.lower() == "avnet"
+    if is_avnet and not (isinstance(model_args, dict) and "enc_dec_params" in model_args):
         if conf is None:
             raise ValueError(
                 f"{path} does not hold AVNet's constructor arguments (a reference "
@@ -87,7 +88,7 @@ def load_model(path: str, device="cuda", conf: Optional[Dict[str, Any]] = None
                 "has none): pass the experiment's config, whose audionet section "
                 "holds them")
         model_args = conf.get("audionet", conf)
-    model = build_model(model_args, device=device)
+    model = build_model(model_args or {}, device=device, model_name=model_name)
     model.load_state_dict(state_dict)
     return model, {"model_name": model_name, "model_args": model_args,
                    "state_dict": state_dict}

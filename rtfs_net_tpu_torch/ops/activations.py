@@ -1,5 +1,8 @@
 """Activation registry (reference ``src/models/layers/activations.py``):
-a YAML name resolves to a module class, ``None`` to Identity."""
+a YAML name resolves to a module class, ``None`` to Identity. The classes
+carry the JAX package's constants (``rtfs_net_tpu/ops/activations.py``):
+GELU is the exact erf form and LeakyReLU's slope is 0.01, as torch's
+defaults are."""
 from __future__ import annotations
 
 import torch
@@ -21,18 +24,51 @@ class PReLU(nn.Module):
         return F.prelu(x, self.weight.to(x.dtype))
 
 
+Identity = nn.Identity
+ReLU = nn.ReLU
+Sigmoid = nn.Sigmoid
+Tanh = nn.Tanh
+SiLU = nn.SiLU
+ELU = nn.ELU
+
+
+class GELU(nn.GELU):
+    """``jax.nn.gelu(approximate=False)``: the exact erf form."""
+
+    def __init__(self):
+        super().__init__(approximate="none")
+
+
+class LeakyReLU(nn.LeakyReLU):
+    def __init__(self, negative_slope: float = 0.01):
+        super().__init__(negative_slope)
+
+
+class Softplus(nn.Module):
+    """``jax.nn.softplus``: log(1 + e^x) everywhere (torch's ``nn.Softplus``
+    returns x itself above 20)."""
+
+    def forward(self, x):
+        return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 _REGISTRY = {
-    "identity": nn.Identity,
-    "relu": nn.ReLU,
+    "identity": Identity,
+    "relu": ReLU,
     "prelu": PReLU,
-    "sigmoid": nn.Sigmoid,
-    "tanh": nn.Tanh,
+    "sigmoid": Sigmoid,
+    "tanh": Tanh,
+    "gelu": GELU,
+    "silu": SiLU,
+    "leakyrelu": LeakyReLU,
+    "elu": ELU,
+    "softplus": Softplus,
 }
 
 
 def get(identifier):
     if identifier is None:
-        return nn.Identity
+        return Identity
     if callable(identifier):
         return identifier
     if isinstance(identifier, str):

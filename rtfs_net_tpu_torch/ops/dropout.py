@@ -62,3 +62,16 @@ def dropout(x: torch.Tensor, p: float, training: bool, batch_dim: int = 0) -> to
     keep = 1.0 - p
     return torch.where(keep_mask(x.shape, keep, x.device, batch_dim), x / keep,
                        torch.zeros_like(x))
+
+
+class Dropout(torch.nn.Module):
+    """``dropout`` as a module (``flax.linen.Dropout``): in training mode
+    each element is kept with probability 1-p, the mask drawn from the
+    active generator; the identity in eval mode."""
+
+    def __init__(self, p: float = 0.0):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x):
+        return dropout(x, self.p, self.training)

@@ -78,6 +78,15 @@ class _FloatBatchNorm:
         return super().forward(x.float()).to(x.dtype)
 
 
+class BatchNorm(_FloatBatchNorm, nn.modules.batchnorm._BatchNorm):
+    """Batch norm over dim 1 of an input of any rank (the JAX package's
+    ``BatchNorm``, whose dimensionality follows the input)."""
+
+    def _check_input_dim(self, x):
+        if x.dim() < 2:
+            raise ValueError(f"expected an input with a channel dim, got {x.dim()}D")
+
+
 class BatchNorm1d(_FloatBatchNorm, nn.BatchNorm1d):
     pass
 
@@ -98,6 +107,10 @@ class LayerNorm(nn.LayerNorm):
                             self.bias.float(), self.eps).to(x.dtype)
 
 
+Identity = nn.Identity
+gLN = GlobalLayerNorm
+LN4d = LayerNormalization4D
+
 _REGISTRY = {
     "gln": GlobalLayerNorm,
     "globallayernorm": GlobalLayerNorm,
@@ -108,13 +121,13 @@ _REGISTRY = {
     "batchnorm2d": BatchNorm2d,
     "batchnorm3d": BatchNorm3d,
     "layernorm": LayerNorm,
-    "identity": nn.Identity,
+    "identity": Identity,
 }
 
 
 def get(identifier):
     if identifier is None:
-        return nn.Identity
+        return Identity
     if callable(identifier):
         return identifier
     if isinstance(identifier, str):

@@ -23,6 +23,13 @@ Two routes, named as in the JAX package (``SRU(backend=...)``, default
 Parameters keep the reference's layout, ``rnn_lst.{l}.weight``
 (d_in, ndir·k·H) with columns [dir][k][h]; they are reordered to the
 kernels' chunk-major [k][dir][h] once per call.
+
+``LSTM`` and ``GRU`` have ``nn.LSTM``/``nn.GRU`` semantics and parameter
+names and run PyTorch's own recurrence (cuDNN on the card for float32;
+cuDNN takes no bfloat16 RNN, so a bfloat16 call runs PyTorch's per-step
+CUDA cells). The JAX package runs them as ``lax.scan`` in XLA, not as a
+Pallas kernel. ``sru_v1_layer`` is the SRU-v1 direction the JAX package
+exposes for experiments; no model calls it.
 """
 from __future__ import annotations
 
@@ -30,13 +37,36 @@ import math
 from typing import Optional
 
 import torch
-from torch import nn
+from torch import _VF, nn
 import torch.nn.functional as F
 
 from .conv import unfold_1d
 from .kernels.sru import sru_stack_layer
 from .kernels.sru_direction import sru_direction
 from .kernels.sru_train import sru_layer_train
+
+def windowed_projection(x, w, kernel_size: int, stride: int):
+    """``unfold_1d(x, k, s)`` -> (L, B, C·k) -> ``@ w`` as one k-wide
+    strided conv on the pre-unfold tensor: x (B, C, T), w (C·k, D) with
+    rows ``c*k + tap`` (the ``unfold_1d`` order) -> u (L, B, D)."""
+    C = x.shape[1]
+    rhs = w.t().reshape(-1, C, kernel_size).to(x.dtype)  # (D, C, k)
+    return F.conv1d(x, rhs, stride=stride).permute(2, 0, 1)
+
+
+def sru_v1_layer(u0, f_pre, r_pre, x_skip):
+    """One SRU-v1 direction, gates independent of c, on (L, ...) inputs:
+    c_t = f_t c_{t-1} + (1 - f_t) u0_t with f = sigmoid(f_pre) and c_{-1} = 0,
+    h_t = r_t c_t + (1 - r_t) x_skip_t with r = sigmoid(r_pre)."""
+    f = torch.sigmoid(f_pre)
+    b = (1.0 - f) * u0
+    c, prev = [], torch.zeros_like(u0[0])
+    for t in range(u0.shape[0]):
+        prev = f[t] * prev + b[t]
+        c.append(prev)
+    r = torch.sigmoid(r_pre)
+    return r * torch.stack(c) + (1.0 - r) * x_skip
+
 
 # the route of an SRU built without ``backend``; read at each call
 DEFAULT_SRU_BACKEND = "scan"
@@ -149,8 +179,7 @@ class SRU(nn.Module):
         w = cell.projection(x.dtype)
         if window is not None:
             k_w, s_w = window
-            u = F.conv1d(x, w.view(w.shape[0], x.shape[1], k_w), stride=s_w)  # (rows, kO, L)
-            u = u.permute(2, 0, 1).contiguous()
+            u = windowed_projection(x, w.t(), k_w, s_w).contiguous()  # (L, rows, kO)
             h = unfold_1d(x, k_w, s_w).permute(2, 0, 1) if cell.k == 3 else None
         else:
             u = torch.matmul(x, w.t())
@@ -159,3 +188,75 @@ class SRU(nn.Module):
         for cell in self.rnn_lst[1:]:
             h = cell.recur_directions(torch.matmul(h, cell.projection(h.dtype).t()), h)
         return h
+
+
+class _LibraryRNN(nn.Module):
+    """Parameters under ``nn.LSTM``/``nn.GRU``'s names
+    (``weight_ih_l{n}[_reverse]``, ``weight_hh_...``, ``bias_ih_...``,
+    ``bias_hh_...``; ``gates`` row blocks each) and one call of PyTorch's
+    recurrence with them cast to the input's dtype. The call asks for the
+    training form whenever autograd records, whatever the module's mode:
+    cuDNN keeps what its backward needs only then, and with no dropout the
+    two forms compute the same values."""
+
+    gates = 0
+    recurrence = None
+
+    def __init__(self, input_size: int, hidden_size: int, num_layers: int = 1,
+                 bidirectional: bool = False, batch_first: bool = False):
+        super().__init__()
+        self.hidden_size, self.num_layers = hidden_size, num_layers
+        self.bidirectional, self.batch_first = bidirectional, batch_first
+        ndir = 2 if bidirectional else 1
+        self.names = []
+        for layer in range(num_layers):
+            d_in = input_size if layer == 0 else hidden_size * ndir
+            for d in range(ndir):
+                sfx = f"_l{layer}" + ("_reverse" if d == 1 else "")
+                for name, shape in ((f"weight_ih{sfx}", (d_in,)),
+                                    (f"weight_hh{sfx}", (hidden_size,)),
+                                    (f"bias_ih{sfx}", ()), (f"bias_hh{sfx}", ())):
+                    self.register_parameter(name, nn.Parameter(
+                        torch.empty((self.gates * hidden_size,) + shape)))
+                    self.names.append(name)
+        self.reset_parameters()
+
+    def reset_parameters(self, generator=None):
+        bound = 1.0 / math.sqrt(self.hidden_size)
+        with torch.no_grad():
+            for name in self.names:
+                getattr(self, name).uniform_(-bound, bound, generator=generator)
+
+    def forward(self, x, window=None):
+        """x: (L, B, input_size), or (B, L, input_size) when ``batch_first``
+        -> (L, B, ndir·H) or (B, L, ndir·H). With ``window=(k, s)``, x is the
+        pre-unfold (B, C, T) tensor with C·k == input_size; its k-wide
+        windows are the (L, B, C·k) sequence."""
+        batch_first = self.batch_first
+        if window is not None:
+            x, batch_first = unfold_1d(x, *window).permute(2, 0, 1), False
+        weights = [getattr(self, name).to(x.dtype) for name in self.names]
+        ndir = 2 if self.bidirectional else 1
+        h0 = x.new_zeros((self.num_layers * ndir, x.shape[0 if batch_first else 1],
+                          self.hidden_size))
+        hx = h0 if self.gates == 3 else (h0, h0)
+        return self.recurrence(x, hx, weights, True, self.num_layers, 0.0,
+                               torch.is_grad_enabled(), self.bidirectional, batch_first)[0]
+
+
+class LSTM(_LibraryRNN):
+    """``nn.LSTM`` (gate order i, f, g, o; both biases)."""
+
+    gates = 4
+    recurrence = staticmethod(_VF.lstm)
+
+
+class GRU(_LibraryRNN):
+    """``nn.GRU`` (gate order r, z, n; the reset gate scales W_hn h + b_hn)."""
+
+    gates = 3
+    recurrence = staticmethod(_VF.gru)
+
+
+def get_rnn(rnn_type: str):
+    return {"SRU": SRU, "LSTM": LSTM, "GRU": GRU}[rnn_type]

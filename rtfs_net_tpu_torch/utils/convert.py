@@ -1,15 +1,20 @@
 """JAX-package variables -> the port's ``state_dict``.
 
-The inverse of ``rtfs_net_tpu/utils/avnet_convert.py:convert_avnet`` for
-the modules the port has: it reads the JAX model's variables, given as
-nested dicts of numpy arrays (``params`` and ``batch_stats``), and writes
-them under the reference torch names the port uses. Besides renaming:
+The inverse of ``rtfs_net_tpu/utils/avnet_convert.py:convert_avnet``: it
+reads the JAX model's variables, given as nested dicts of numpy arrays
+(``params`` and ``batch_stats``), and writes them under the reference
+torch names the port uses (where ``convert_avnet`` maps no name, for the
+legacy zoo's BiLSTM2D, MLP, Permutator, the squeeze attentions and
+DepthwiseSeparableConvolution, the names are the JAX package's or, for
+CBAM, ShuffleAttention and CoT, those of their published PyTorch
+source). Besides renaming:
 
 * SRU weight columns go from the JAX [k][dir][h] order back to the
   reference's [dir][k][h];
 * MHSA2D's fused qkv conv, stacked PReLU slopes and LN4D affines are
   unpacked into the per-head ``Queries/Keys/Values.{h}`` modules;
-* BatchNorm statistics become ``running_mean``/``running_var``.
+* BatchNorm statistics become ``running_mean``/``running_var``;
+* LSTM and GRU parameters carry ``nn.LSTM``'s names on both sides.
 
 Each mapper takes (reader, out, src, path): ``src`` is the torch key
 prefix written, ``path`` the JAX variable path read.
@@ -129,17 +134,38 @@ def sru(r: Reader, out, src: str, path: Path, hid_chan: int, bidirectional: bool
         l += 1
 
 
+def layer_norm(r: Reader, out, src: str, path: Path):
+    """``LayerNorm``: ``scale`` -> ``weight``."""
+    out[_k(src, "weight")] = r.get(path + ("scale",))
+    out[_k(src, "bias")] = r.get(path + ("bias",))
+
+
+def library_rnn(r: Reader, out, src: str, path: Path):
+    """LSTM or GRU: the JAX parameters carry ``nn.LSTM``/``nn.GRU``'s names."""
+    for name in r.node(path):
+        out[_k(src, name)] = r.get(path + (name,))
+
+
 def dual_path_rnn(r: Reader, out, src: str, path: Path, hid_chan: int,
                   bidirectional: bool = True):
+    """DualPathRNN with any ``rnn_type`` (told apart by the JAX variables)
+    and, with ``apply_ffn``, its ``ffn``."""
     norm(r, out, _k(src, "norm"), path + ("norm",))
-    sru(r, out, _k(src, "rnn"), path + ("rnn",), hid_chan, bidirectional)
+    rnn = path + ("rnn",)
+    if r.node(rnn + ("attention",)) is not None:
+        mhsa(r, out, _k(src, "rnn"), rnn)
+    elif r.node(rnn + ("weight_l0",)) is not None:
+        sru(r, out, _k(src, "rnn"), rnn, hid_chan, bidirectional)
+    else:
+        library_rnn(r, out, _k(src, "rnn"), rnn)
+    if r.node(path + ("ffn",)) is not None:
+        ffn(r, out, _k(src, "ffn"), path + ("ffn",))
     _leaf(r, out, _k(src, "linear"), path + ("linear",))
 
 
 def mhsa(r: Reader, out, src: str, path: Path):
     for name in ("norm1", "norm2"):
-        out[_k(src, f"{name}.weight")] = r.get(path + (name, "scale"))
-        out[_k(src, f"{name}.bias")] = r.get(path + (name, "bias"))
+        layer_norm(r, out, _k(src, name), path + (name,))
     att = path + ("attention",)
     out[_k(src, "attention.in_proj_weight")] = r.get(att + ("in_proj_weight",))
     out[_k(src, "attention.in_proj_bias")] = r.get(att + ("in_proj_bias",))
@@ -170,7 +196,12 @@ def mhsa2d(r: Reader, out, src: str, path: Path):
 
 
 def ffn(r: Reader, out, src: str, path: Path):
-    for i, name in enumerate(("encoder", "refiner", "decoder")):
+    """FeedForwardNetwork or ConvolutionalRNN: JAX's ``ConvNormAct_{i}`` in
+    the order they are built."""
+    names = (("encoder", "forward_pass", "backward_pass", "decoder")
+             if r.node(path + ("ConvNormAct_3",)) is not None
+             else ("encoder", "refiner", "decoder"))
+    for i, name in enumerate(names):
         conv_norm_act(r, out, _k(src, name), path + (f"ConvNormAct_{i}",))
 
 
@@ -179,21 +210,136 @@ def global_attention(r: Reader, out, src: str, path: Path):
     ffn(r, out, _k(src, "FFN"), path + ("FFN",))
 
 
+def global_attention_2d(r: Reader, out, src: str, path: Path):
+    for name in ("time_MHSA", "freq_MHSA"):
+        mhsa(r, out, _k(src, name), path + (name,))
+    for name in ("time_FFN", "freq_FFN", "group_FFN"):
+        if r.node(path + (name,)) is not None:
+            ffn(r, out, _k(src, name), path + (name,))
+
+
+def rnn_projection(r: Reader, out, src: str, path: Path):
+    """RNNProjection: ``proj`` is the reference's Sequential (PReLU,
+    Dropout, Linear, Dropout)."""
+    layer_norm(r, out, _k(src, "norm1"), path + ("norm1",))
+    layer_norm(r, out, _k(src, "norm2"), path + ("norm2",))
+    library_rnn(r, out, _k(src, "rnn"), path + ("rnn",))
+    out[_k(src, "proj.0.weight")] = r.get(path + ("prelu", "alpha"))
+    _leaf(r, out, _k(src, "proj.2"), path + ("proj",))
+
+
+def global_attention_rnn(r: Reader, out, src: str, path: Path):
+    rnn_projection(r, out, _k(src, "RNN"), path + ("RNN",))
+
+
+def global_galr(r: Reader, out, src: str, path: Path):
+    rnn_projection(r, out, _k(src, "time_RNN"), path + ("time_RNN",))
+    mhsa(r, out, _k(src, "freq_MHSA"), path + ("freq_MHSA",))
+    ffn(r, out, _k(src, "freq_FFN"), path + ("freq_FFN",))
+    if r.node(path + ("group_FFN",)) is not None:
+        ffn(r, out, _k(src, "group_FFN"), path + ("group_FFN",))
+
+
+def depthwise_separable(r: Reader, out, src: str, path: Path):
+    """DepthwiseSeparableConvolution: JAX's ``ConvNormAct_0/1`` and its
+    auto-named activation (a PReLU's slope) and norm."""
+    node = r.node(path)
+    if node is None:
+        return
+    conv_norm_act(r, out, _k(src, "depthwise_conv"), path + ("ConvNormAct_0",))
+    conv_norm_act(r, out, _k(src, "pointwise_conv"), path + ("ConvNormAct_1",))
+    for name in node:
+        if name.startswith("PReLU"):
+            _alpha(r, out, _k(src, "act.weight"), path + (name,))
+        elif not name.startswith("ConvNormAct"):
+            norm(r, out, _k(src, "norm"), path + (name,))
+
+
+def cbam(r: Reader, out, src: str, path: Path):
+    _leaf(r, out, _k(src, "ca.se.0"), path + ("se1",))
+    _leaf(r, out, _k(src, "ca.se.2"), path + ("se2",))
+    _leaf(r, out, _k(src, "sa.conv"), path + ("sa",))
+
+
+def shuffle_attention(r: Reader, out, src: str, path: Path):
+    for name in ("cweight", "cbias", "sweight", "sbias"):
+        out[_k(src, name)] = r.get(path + (name,))
+    out[_k(src, "gn.weight")] = r.get(path + ("gn_scale",))
+    out[_k(src, "gn.bias")] = r.get(path + ("gn_bias",))
+
+
+def cot_attention(r: Reader, out, src: str, path: Path):
+    for ours, theirs in (("key_embed.0", "key_conv"), ("value_embed.0", "value_conv"),
+                         ("attention_embed.0", "att1"), ("attention_embed.3", "att2")):
+        _leaf(r, out, _k(src, ours), path + (theirs,))
+    for ours, theirs in (("key_embed.1", "key_bn"), ("value_embed.1", "value_bn"),
+                         ("attention_embed.1", "att_bn")):
+        norm(r, out, _k(src, ours), path + (theirs,))
+
+
+def conv_lstm_cell(r: Reader, out, src: str, path: Path):
+    for sfx in ("", "_b"):
+        if r.node(path + (f"linear_hh{sfx}",)) is None:
+            continue
+        conv_act_norm(r, out, _k(src, f"linear_ih{sfx}.0"), path + (f"linear_ih{sfx}_dw",))
+        conv_act_norm(r, out, _k(src, f"linear_ih{sfx}.1"), path + (f"linear_ih{sfx}_pw",))
+        conv_act_norm(r, out, _k(src, f"linear_hh{sfx}"), path + (f"linear_hh{sfx}",))
+
+
+def bilstm2d(r: Reader, out, src: str, path: Path):
+    norm(r, out, _k(src, "norm"), path + ("norm",))
+    conv_lstm_cell(r, out, _k(src, "lstm_cell"), path + ("lstm_cell",))
+    _leaf(r, out, _k(src, "proj_deconv"), path + ("proj_deconv",))
+    _alpha(r, out, _k(src, "proj_act.weight"), path + ("proj_act",))
+    norm(r, out, _k(src, "proj_norm"), path + ("proj_norm",))
+    conv_act_norm(r, out, _k(src, "proj_out"), path + ("proj_out",))
+
+
+def mixer(r: Reader, out, src: str, path: Path):
+    """MLP or Permutator: the JAX names, LayerNorm ``scale`` -> ``weight``."""
+    for name, node in r.node(path).items():
+        if "scale" in node:
+            layer_norm(r, out, _k(src, name), path + (name,))
+        elif "weight" in node:
+            _leaf(r, out, _k(src, name), path + (name,))
+        else:  # a _MixerFF
+            for fc in ("fc1", "fc2"):
+                _leaf(r, out, _k(src, f"{name}.{fc}"), path + (name, fc))
+
+
 def attn_fusion_cell(r: Reader, out, src: str, path: Path):
     for name in ("key_embed", "value_embed", "attention_embed", "resize"):
         conv_norm_act(r, out, _k(src, name), path + (name,))
+
+
+# layer_type -> mapper of a global layer (DualPathRNN also needs its config)
+_GLOBAL_LAYERS = {
+    "MultiHeadSelfAttention2D": mhsa2d, "MultiHeadSelfAttention": mhsa,
+    "GlobalAttention": global_attention, "GlobalAttention2D": global_attention_2d,
+    "FeedForwardNetwork": ffn, "ConvolutionalRNN": ffn,
+    "GlobalAttentionRNN": global_attention_rnn, "GlobalGALR": global_galr,
+    "RNNProjection": rnn_projection, "DepthwiseSeparableConvolution": depthwise_separable,
+    "ConvNormAct": conv_norm_act, "ConvActNorm": conv_act_norm, "BiLSTM2D": bilstm2d,
+    "CBAMBlock": cbam, "ShuffleAttention": shuffle_attention, "CoTAttention": cot_attention,
+    "MLP": mixer, "Permutator": mixer, "InjectionMultiSum": injection_multi_sum,
+    "ATTNFusionCell": attn_fusion_cell,
+}
 
 
 def _global_layer(r: Reader, out, src: str, path: Path, conf: dict):
     lt = conf["layer_type"]
     if lt == "DualPathRNN":
         dual_path_rnn(r, out, src, path, conf["hid_chan"], conf.get("bidirectional", True))
-    elif lt == "MultiHeadSelfAttention2D":
-        mhsa2d(r, out, src, path)
-    elif lt == "GlobalAttention":
-        global_attention(r, out, src, path)
+    elif lt in _GLOBAL_LAYERS:
+        _GLOBAL_LAYERS[lt](r, out, src, path)
     else:
-        raise NotImplementedError(f"layer_type {lt!r} is not ported yet")
+        raise ValueError(f"unknown layer_type {lt!r}")
+
+
+def _global_stack(r: Reader, out, src: str, path: Path, conf: dict):
+    """A block's config-built ``globalatt`` Sequential."""
+    for j, lconf in enumerate((conf.get("layers") or {}).values()):
+        _global_layer(r, out, _k(src, f"globalatt.{j}"), path + (f"globalatt{j}",), lconf)
 
 
 def tdanet_block(r: Reader, out, src: str, path: Path, conf: dict):
@@ -205,8 +351,14 @@ def tdanet_block(r: Reader, out, src: str, path: Path, conf: dict):
         injection_multi_sum(r, out, _k(src, f"fusion_layers.{i}"), path + (f"fuse{i}",))
     for i in range(depth - 1):
         injection_multi_sum(r, out, _k(src, f"concat_layers.{i}"), path + (f"concat{i}",))
-    for j, lconf in enumerate((conf.get("layers") or {}).values()):
-        _global_layer(r, out, _k(src, f"globalatt.{j}"), path + (f"globalatt{j}",), lconf)
+    _global_stack(r, out, src, path, conf)
+    conv_norm_act(r, out, _k(src, "residual_conv"), path + ("residual_conv",))
+
+
+def dpt_block(r: Reader, out, src: str, path: Path, conf: dict):
+    conv_norm_act(r, out, _k(src, "gateway"), path + ("gateway",))
+    conv_norm_act(r, out, _k(src, "projection"), path + ("projection",))
+    _global_stack(r, out, src, path, conf)
     conv_norm_act(r, out, _k(src, "residual_conv"), path + ("residual_conv",))
 
 
@@ -223,7 +375,7 @@ def frcnn_block(r: Reader, out, src: str, path: Path, conf: dict):
         conv_norm_act(r, out, _k(src, f"residual_conv.{i}"), path + (f"residual_conv{i}",))
 
 
-_BLOCKS = {"TDANet": tdanet_block, "FRCNN": frcnn_block}
+_BLOCKS = {"TDANet": tdanet_block, "FRCNN": frcnn_block, "DPTNet": dpt_block}
 
 
 def separator(r: Reader, out, src: str, path: Path, params: dict, which: str):
@@ -231,8 +383,8 @@ def separator(r: Reader, out, src: str, path: Path, params: dict, which: str):
     if not net:
         return
     if net not in _BLOCKS:
-        raise NotImplementedError(f"{which}_net {net!r} is not ported yet")
-    if params.get("hid_chan", -1) <= 0:
+        raise ValueError(f"unknown {which}_net {net!r}")
+    if not r.node(path):
         return  # no blocks: every repeat is the identity
     block = _BLOCKS[net]
     if params.get("shared", False):

@@ -132,3 +132,23 @@ def assert_nearest_maps_agree(sizes):
             np.testing.assert_array_equal(jax_nearest_index(n_in, n_out),
                                           np.arange(n_out) * n_in // n_out,
                                           err_msg=f"{n_in} -> {n_out}")
+
+
+def jax_optimizer_names():
+    """Every name the JAX package's ``make_optimizer`` takes, read from its
+    source: the string constants its ``build`` compares ``name`` with."""
+    import ast
+    import os
+
+    path = os.path.join(os.path.dirname(__file__), "..", "rtfs_net_tpu", "system",
+                        "optimizers.py")
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    make = next(n for n in tree.body if getattr(n, "name", None) == "make_optimizer")
+    names = set()
+    for node in ast.walk(make):
+        if isinstance(node, ast.Compare) and getattr(node.left, "id", None) == "name":
+            for comp in node.comparators:
+                elts = comp.elts if isinstance(comp, ast.Tuple) else [comp]
+                names.update(e.value for e in elts if isinstance(e, ast.Constant))
+    return sorted(names)

@@ -32,7 +32,7 @@ from rtfs_net_tpu.models import AVNet as JaxAVNet
 from rtfs_net_tpu.utils.avnet_convert import convert_avnet
 from rtfs_net_tpu_torch import losses
 from rtfs_net_tpu_torch.models import build_model
-from rtfs_net_tpu_torch.system import System, get_lr, make_optimizer, set_lr
+from rtfs_net_tpu_torch.system import System, get_lr, make_optimizer, optimizers, set_lr
 from rtfs_net_tpu_torch.utils.convert import grads_from_jax, state_dict_from_jax
 
 from _torch_port import one_torch_thread  # noqa: F401
@@ -276,8 +276,7 @@ def test_optimizer_registry():
     assert isinstance(make_optimizer(w, "adam"), torch.optim.Adam)
     opt = make_optimizer(w, "sgd", lr=0.1, momentum=0.9, weight_decay=1e-4)
     assert get_lr(set_lr(opt, 0.05)) == 0.05
-    with pytest.raises(NotImplementedError):
-        make_optimizer(w, "lamb")
+    assert isinstance(make_optimizer(w, "lamb"), optimizers.Lamb)  # the optax rule
     with pytest.raises(ValueError):
         make_optimizer(w, "nope")
 

@@ -300,7 +300,7 @@ def test_serialization_round_trip(tmp_path):
     with torch.no_grad():
         assert torch.equal(model(x, None), loaded(x, None))
     serialization.save_model(path, "DPTNet", conf, model.state_dict())
-    with pytest.raises(ValueError, match="not ported"):
+    with pytest.raises(ValueError, match="Could not interpret model identifier"):
         serialization.load_model(path, device="cpu")
 
 
