@@ -215,7 +215,35 @@ Phases (any failure exits non-zero before the final line):
    with one gradient, the card against the CPU within 1e-5·max|p|; a
    ``System.train_step`` with ``ranger`` and one with ``adafactor``. A
    ``layer_zoo`` line.
-23. a ``{"kernels": [...]}`` line (with each kernel's launches on every
+23. proofs: the JAX side's training proofs through the port's tools
+   (``rtfs_net_tpu_torch/scripts/``), K1, K2 and K3 held first against
+   their plain versions at the proofs' shapes (float32 B = 4, bfloat16
+   B = 2), both under PyTorch's default TF32 settings (those of the
+   training entry point). ``train_proof.run``: full-width RTFS-Net-4, 200
+   float32 steps at B = 4 on one synthetic batch; fails unless the
+   validation SI-SDR rose by more than 5.0 dB. ``av_train_proof.run``: 120
+   bfloat16 steps at B = 2 from raw frames through a trainable FRCNN video
+   model; fails unless every video parameter moved. Each run's launches
+   exactly its steps' and validations'. ``proofs`` lines: the curves,
+   ms per step, launches.
+24. config_zoo: ``bench_zoo.bench_config`` for RTFS-Net-4, 6, 12 and
+   CTCNet-16 at full width from seed weights: serving at B = 128 and 1 in
+   bfloat16 (min of 5), bfloat16 train steps at B = 4 and 16 (min of 5),
+   peak memory; every phase's launches exactly its calls times the
+   config's (K1 8 and K3 10 a TDANet repeat per forward, K2 16 + 8 and K3
+   30 per step; CTCNet none); RTFS-Net-12 at B = 1 through
+   ``check_serving`` (its B=1 float32 output against the CPU within
+   5e-4·max|ref|). A row per config and a ``config_zoo`` line.
+25. sweep: ``bench_sweep.sweep`` over B = 96, 128, 160, 192, 256 in
+   bfloat16 (K1 32 and K3 40 per call); a ``sweep`` line.
+26. stages: ``profile_serving.profile``, the B=128 bfloat16 forward split
+   into its stages at the shapes the forward gives them, timed by CUDA
+   events; exact launches; a ``stages`` line.
+27. loader: ``bench_loader`` on a synthetic on-disk set of 32 files per
+   speaker, three variants, in process and at 1, 4, 8 and 16 workers,
+   batches uploaded to the card; a ``loader`` line with the headroom over
+   the B=16 bfloat16 step's rate measured in phase 24.
+28. a ``{"kernels": [...]}`` line (with each kernel's launches on every
    path), then ``{"ok": true, "device": {...}}`` last.
 
 Every comparison on the card runs with TF32 off (cuDNN convolutions and
@@ -223,6 +251,7 @@ matmuls in full float32), and so do the float32 timings.
 """
 import collections
 import concurrent.futures
+import contextlib
 import copy
 import itertools
 import json
@@ -314,6 +343,9 @@ ZOO_PLANE, ZOO_LAYER_BATCH, ZOO_OPT_STEPS, ZOO_OPT_TOL = (64, 125, 64), 2, 7, 1e
 # DualPathRNN along F runs 122 windows of 251·B rows; its group FFN's 5x5
 # depthwise refiner runs on 128 channels
 ZOO_SRU_PASS, ZOO_DW_CHANNELS, ZOO_DW_KERNEL = (122, 251), 128, (5, 5)
+# the loader phase: synthetic files per speaker (3 s each) and the JAX
+# script's worker counts
+LOADER_FILES, LOADER_WORKERS = 32, (1, 4, 8, 16)
 CHANNELS = 64  # TDANet hid_chan: the depthwise convs' channels
 DW_PLANES = {(251, 129): 3, (125, 64): 7}  # K3 launches per TDANet block, by (T, F)
 DW_KERNEL, DW_PADS = (4, 4), ((1, 2), (1, 2))
@@ -2953,32 +2985,28 @@ def rtfs4_optim():
         return yaml.safe_load(f)["optim"]
 
 
-def check_zoo_kernels():
-    """K1, K2 and K3 against their plain versions at the DPTNet AVNet's
-    shapes: K1 at (122, k·64, 251·B) for B = 1, 4, 16, K2's forward and
-    backward at B = TRAIN_BATCHES[0], k = 4 and 3, and K3's forward and dx
-    at (B, 128, 251, 129) with the 5x5 kernel for the serving and the train
-    batch, in both dtypes; K3's device time at B = 16 beside
-    ``F.conv2d(groups=C)``'s. Returns the rows."""
+def check_kernels_at(what, sru_passes, serve, train, dw_cases, gen):
+    """K1, K2 and K3 against their plain versions at one path's shapes: K1
+    at (L, k·64, rows·B) for each (L, rows) of ``sru_passes`` and each (B,
+    dtype) of ``serve``; K2's forward and backward at each (B, dtype) of
+    ``train``; both for k = 4 and 3; K3's forward and dx at each (shape,
+    kernel, dtype) of ``dw_cases`` with the kernel's centred pads. Fails
+    out of tolerance; returns the rows."""
     import torch
-    import torch.nn.functional as F
 
-    ksru, ktrain, kdw, _ = kernel_modules()
-    gen = torch.Generator(device="cuda").manual_seed(25)
-    L, per_utt = ZOO_SRU_PASS
+    ksru, ktrain, _, _ = kernel_modules()
     rows = []
-    for B, k, dtype in itertools.product(SERVE_BATCHES, (4, 3), (torch.float32, torch.bfloat16)):
+    for (L, per_utt), (B, dtype), k in itertools.product(sru_passes, serve, (4, 3)):
         sets, v, b = sru_inputs(L, per_utt * B, k, dtype, gen, 1)
         u, skip = sets[0]
         got = ksru.sru_stack_layer(u, skip, v, b, H=H, k=k, ndir=2)
         ok, err = sru_tolerance_ok(got, ksru.sru_stack_layer_ref(u, skip, v, b, H=H, k=k,
                                                                 ndir=2), dtype)
-        rows.append({"kernel": "K1", "B": B, "k": k, "dtype": dtype_name(dtype),
+        rows.append({"kernel": "K1", "L": L, "B": B, "k": k, "dtype": dtype_name(dtype),
                      "max_abs_err": err})
         if not ok:
-            fail(f"sru_stack_layer at the DPTNet shape B={B} k={k} {dtype}: {err}")
-    B = TRAIN_BATCHES[0]
-    for k, dtype in itertools.product((4, 3), (torch.float32, torch.bfloat16)):
+            fail(f"sru_stack_layer at {what} L={L} B={B} k={k} {dtype}: {err}")
+    for (L, per_utt), (B, dtype), k in itertools.product(sru_passes, train, (4, 3)):
         sets, v, b = sru_inputs(L, per_utt * B, k, dtype, gen, 1)
         u, skip = sets[0]
         dh = torch.randn((L, 2 * H, per_utt * B), generator=gen, device="cuda").to(dtype)
@@ -2993,31 +3021,52 @@ def check_zoo_kernels():
             if w is not None:
                 ok, errs[part] = tolerance_ok(g, w, dtype)
                 if not ok:
-                    fail(f"sru_train {part} at the DPTNet shape k={k} {dtype}: {errs[part]}")
+                    fail(f"sru_train {part} at {what} L={L} B={B} k={k} {dtype}: "
+                         f"{errs[part]}")
         gate_rtol = 1e-4 if dtype == torch.float32 else 1e-3
         for part, g, w in (("dv", grads[2], want[2]), ("db", grads[3], want[3])):
             errs[part] = float((g - w).abs().max())
             if not errs[part] <= gate_rtol * float(w.abs().max()):
-                fail(f"sru_train {part} at the DPTNet shape k={k} {dtype}: {errs[part]}")
-        rows.append({"kernel": "K2", "B": B, "k": k, "dtype": dtype_name(dtype),
+                fail(f"sru_train {part} at {what} L={L} B={B} k={k} {dtype}: {errs[part]}")
+        rows.append({"kernel": "K2", "L": L, "B": B, "k": k, "dtype": dtype_name(dtype),
                      "errors": errs})
+    for shape, kernel, dtype in dw_cases:
+        pads = tuple(((kk - 1) // 2, kk - 1 - (kk - 1) // 2) for kk in kernel)
+        err, dx_err = check_dw_forward_dx(shape, kernel, pads, 0, dtype, gen, what)
+        rows.append({"kernel": "K3", "x": shape, "dtype": dtype_name(dtype),
+                     "max_abs_err": err, "dx_max_abs_err": dx_err})
+    return rows
+
+
+def check_zoo_kernels():
+    """K1, K2 and K3 against their plain versions at the DPTNet AVNet's
+    shapes: K1 at (122, k·64, 251·B) for B = 1, 4, 16, K2's forward and
+    backward at B = TRAIN_BATCHES[0], k = 4 and 3, and K3's forward and dx
+    at (B, 128, 251, 129) with the 5x5 kernel for the serving and the train
+    batch, in both dtypes; K3's device time at B = 16 beside
+    ``F.conv2d(groups=C)``'s. Returns the rows."""
+    import torch
+    import torch.nn.functional as F
+
+    _, _, kdw, _ = kernel_modules()
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    dtypes = (torch.float32, torch.bfloat16)
+    plane = next(iter(DW_PLANES))  # the full (251, 129) plane
+    rows = check_kernels_at(
+        "the DPTNet shape", [ZOO_SRU_PASS], list(itertools.product(SERVE_BATCHES, dtypes)),
+        [(TRAIN_BATCHES[0], dtype) for dtype in dtypes],
+        [((B, ZOO_DW_CHANNELS, *plane), ZOO_DW_KERNEL, dtype) for B, dtype in
+         itertools.product((SERVE_BATCHES[-1], TRAIN_BATCHES[0]), dtypes)], gen)
     pads = tuple(((kk - 1) // 2, kk - 1 - (kk - 1) // 2) for kk in ZOO_DW_KERNEL)
-    for B, dtype in itertools.product((SERVE_BATCHES[-1], TRAIN_BATCHES[0]),
-                                      (torch.float32, torch.bfloat16)):
-        shape = (B, ZOO_DW_CHANNELS, *next(iter(DW_PLANES)))  # the full (251, 129) plane
-        err, dx_err = check_dw_forward_dx(shape, ZOO_DW_KERNEL, pads, 0, dtype, gen,
-                                          "DPTNet group FFN")
-        row = {"kernel": "K3", "x": shape, "dtype": dtype_name(dtype), "max_abs_err": err,
-               "dx_max_abs_err": dx_err}
-        if B == SERVE_BATCHES[-1]:
-            x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
-            w = torch.randn((shape[1], 1, *ZOO_DW_KERNEL), generator=gen, device="cuda")
-            w_lib = w.to(dtype)
-            with torch.no_grad():
-                row["ms"] = event_ms(lambda: kdw.dw_conv2d_same(x, w, pads), reps=10)
-                row["library_ms"] = event_ms(
-                    lambda: F.conv2d(x, w_lib, padding=pads[0][0], groups=shape[1]), reps=10)
-        rows.append(row)
+    shape = (SERVE_BATCHES[-1], ZOO_DW_CHANNELS, *plane)
+    for dtype in dtypes:
+        x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        w = torch.randn((shape[1], 1, *ZOO_DW_KERNEL), generator=gen, device="cuda")
+        w_lib = w.to(dtype)
+        with torch.no_grad():
+            rows.append({"kernel": "K3", "x": shape, "dtype": dtype_name(dtype), "ms": event_ms(
+                lambda: kdw.dw_conv2d_same(x, w, pads), reps=10), "library_ms": event_ms(
+                lambda: F.conv2d(x, w_lib, padding=pads[0][0], groups=shape[1]), reps=10)})
     print("layer_zoo kernels at the DPTNet shapes " + json.dumps(rows))
     return rows
 
@@ -3075,6 +3124,223 @@ def check_layer_zoo(smi):
     out["launches"] = paths
     print("layer_zoo " + json.dumps(out))
     return paths
+
+
+@contextlib.contextmanager
+def train_precision():
+    """PyTorch's default TF32 settings, those ``rtfs_net_tpu_torch.train``
+    trains with (cuDNN's float32 convolutions may use TF32, matmuls run in
+    full float32), inside the block; TF32 off again after it."""
+    import torch
+
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def per_repeat(counts, repeats):
+    return {k: n * repeats for k, n in counts.items()}
+
+
+def check_launch_rows(what, launches, calls, want):
+    """Each phase's launches against ``calls[phase]`` times ``want[phase]``
+    (kernels not named: none)."""
+    for phase, n in calls.items():
+        expect = {k: want[phase].get(k, 0) * n for k in launches[phase]}
+        if launches[phase] != expect:
+            fail(f"{what} {phase}: launches {launches[phase]}, want {expect}")
+
+
+def check_proofs(smi):
+    """Phase 23: the training proofs. K1, K2 and K3 against their plain
+    versions at the proofs' shapes first (K1 at the float32 B = 4
+    validation forward, K2 at the float32 B = 4 and bfloat16 B = 2 steps,
+    K3 forward and dx on both planes at both), then ``train_proof.run``
+    and ``av_train_proof.run`` at full width with JAX's step counts, under
+    ``train_precision``; each run's launches counted from 0. Fails unless
+    the validation SI-SDR rose by more than ``train_proof.MIN_GAIN_DB``,
+    every AV video parameter moved, and the launches are exactly the
+    steps' and validation calls'. Returns the launches by path."""
+    import torch
+
+    from rtfs_net_tpu_torch.scripts import av_train_proof, train_proof
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    av_batch = (av_train_proof.BATCH, bf16)
+    rows = check_kernels_at(
+        "the proofs' shapes", SRU_PASSES, [(train_proof.BATCH, f32)],
+        [(train_proof.BATCH, f32), av_batch],
+        [((B, CHANNELS, *plane), DW_KERNEL, dtype) for plane in DW_PLANES
+         for B, dtype in ((train_proof.BATCH, f32), av_batch)],
+        torch.Generator(device="cuda").manual_seed(30))
+    print("proofs kernels " + json.dumps(rows))
+    step = {"K2_forward": 2 * SRU_LAUNCHES, "K2_backward": SRU_LAUNCHES,
+            "K3": 3 * DW_LAUNCHES}
+    val = {"K1": SRU_LAUNCHES, "K3": DW_LAUNCHES}
+    cuda = torch.device("cuda")
+    paths, out = {}, {"card": smi}
+    with train_precision():
+        reset_launch_counts()
+        proof = train_proof.run(cuda)
+        paths["proof_train"] = launch_counts()
+        vals = 1 + train_proof.STEPS // train_proof.LOG_EVERY
+        want = {k: step.get(k, 0) * train_proof.STEPS + val.get(k, 0) * vals
+                for k in paths["proof_train"]}
+        if paths["proof_train"] != want:
+            fail(f"train_proof: launches {paths['proof_train']}, want {want}")
+        out["train_proof"] = {
+            "improvement_db": proof["improvement_db"], "val_db": proof["val_db"],
+            "train_snr_db_every_25": [-x for x in proof["losses"][train_proof.LOG_EVERY - 1::
+                                                                 train_proof.LOG_EVERY]],
+            "ms_per_step": proof["ms_per_step"], "launches": paths["proof_train"]}
+        print("proofs " + json.dumps(out["train_proof"]))
+        if not proof["improvement_db"] > train_proof.MIN_GAIN_DB:
+            fail(f"train_proof: SI-SDR improvement {proof['improvement_db']} dB, want > "
+                 f"{train_proof.MIN_GAIN_DB}")
+        torch.cuda.empty_cache()
+        reset_launch_counts()
+        av = av_train_proof.run(cuda)
+        paths["proof_av"] = launch_counts()
+        want = {k: step.get(k, 0) * av_train_proof.STEPS for k in paths["proof_av"]}
+        if paths["proof_av"] != want:
+            fail(f"av_train_proof: launches {paths['proof_av']}, want {want}")
+        losses = av["losses"]
+        out["av_train_proof"] = {
+            "video_moved": av["video_moved"], "video_params": av["video_params"],
+            "loss_every_20": [x for i, x in enumerate(losses)
+                              if i % av_train_proof.LOG_EVERY == 0 or i == len(losses) - 1],
+            "proxy_start_db": -losses[0], "proxy_end_db": -losses[-1],
+            "ms_per_step": av["ms_per_step"], "launches": paths["proof_av"]}
+        print("proofs " + json.dumps(out["av_train_proof"]))
+        if av["video_moved"] != av["video_params"]:
+            fail(f"av_train_proof: {av['video_moved']} of {av['video_params']} video "
+                 "parameters moved")
+    torch.cuda.empty_cache()
+    return paths
+
+
+def check_config_zoo(smi):
+    """Phase 24: ``bench_zoo.bench_config`` with ``--latency`` for the four
+    headline configs (RTFS-Net-4, 6, 12, CTCNet-16) at full width: serving
+    at B = 128 and B = 1 in bfloat16, train steps at B = 4 and 16, each
+    phase's launches exactly its calls times the config's per call (per
+    TDANet repeat: K1 8 and K3 10 a forward, K2 16 + 8 and K3 30 a step;
+    CTCNet none); then RTFS-Net-12 served at B = 1 (``check_serving``: its
+    launches, float32 against the CPU within 5e-4·max|ref|, both dtypes
+    timed). Returns the launches by path and the rows."""
+    import torch
+
+    from rtfs_net_tpu_torch.models import build_model
+    from rtfs_net_tpu_torch.scripts import bench_zoo, load_config
+
+    cuda = torch.device("cuda")
+    paths, rows = {}, []
+    forward = {"K1": 2 * sum(SRU_LAYERS.values()), "K3": sum(DW_PLANES.values())}
+    step = {"K2_forward": 2 * forward["K1"], "K2_backward": forward["K1"],
+            "K3": 3 * forward["K3"]}
+    for name, _ in bench_zoo.ZOO:
+        conf = load_config(name)
+        repeats = conf["audionet"]["audio_params"]["repeats"] if "RTFSNet" in name else 0
+        reset_launch_counts()
+        row = bench_zoo.bench_config(name, cuda, conf=conf, latency=True)
+        paths[f"config_zoo_{name}"] = launch_counts()
+        want = {phase: per_repeat(step if phase.startswith("train") else forward, repeats)
+                for phase in row["calls"]}
+        check_launch_rows(f"config_zoo {name}", row["launches"], row["calls"], want)
+        print(bench_zoo.row_text(row), flush=True)
+        rows.append(row)
+        torch.cuda.empty_cache()
+    name = "lrs2_RTFSNet_12_layer"
+    repeats = load_config(name)["audionet"]["audio_params"]["repeats"]
+    model = build_model(load_config(name), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    requests = {1: (torch.randn((1, SAMPLES), generator=gen, device="cuda"),
+                    0.1 * torch.randn((1, LIP_CHANNELS, LIP_FRAMES), generator=gen,
+                                      device="cuda"))}
+    paths["config_zoo_rtfs12_b1"], _, timings = check_serving(
+        "config_zoo RTFS-Net-12", model, requests, want=per_repeat(forward, repeats))
+    del model
+    torch.cuda.empty_cache()
+    print("config_zoo " + json.dumps({"card": smi, "rows": rows, "rtfs12_b1": timings}))
+    return paths, rows
+
+
+def check_sweep(smi):
+    """Phase 25: ``bench_sweep.sweep`` over its default batches: each
+    batch's calls launch K1 32 and K3 40 each. Returns the launches."""
+    import torch
+
+    from rtfs_net_tpu_torch.scripts import bench_sweep
+
+    reset_launch_counts()
+    rows, best = bench_sweep.sweep(torch.device("cuda"))
+    launches = launch_counts()
+    for row in rows:
+        check_launch_rows(f"sweep B={row['B']}", {"serving": row["launches"]},
+                          {"serving": row["calls"]},
+                          {"serving": {"K1": SRU_LAUNCHES, "K3": DW_LAUNCHES}})
+    torch.cuda.empty_cache()
+    print("sweep " + json.dumps({"card": smi, "rows": rows, "best_batch": best["B"]}))
+    return launches
+
+
+def check_stages(smi):
+    """Phase 26: ``profile_serving.profile``, the stage split of the B=128
+    bfloat16 serving forward: every stage finite in time, and the phase's
+    launches those of 7 calls each of the full forward and the refinement
+    (K1 32, K3 40) and of one audio block (K1 8, K3 10), and of the B=1
+    forward that reads the stages' shapes. Returns them."""
+    import torch
+
+    from rtfs_net_tpu_torch.scripts import profile_serving
+
+    reset_launch_counts()
+    ms, shapes, repeats = profile_serving.profile(torch.device("cuda"))
+    launches = launch_counts()
+    calls = 1 + profile_serving.ITERS
+    block = {"K1": SRU_LAUNCHES // REPEATS, "K3": DW_LAUNCHES // REPEATS}
+    # and the B=1 forward that reads the stages' shapes
+    want = {k: (calls * (2 * REPEATS + 1) + REPEATS) * block.get(k, 0) for k in launches}
+    if launches != want:
+        fail(f"stages: launches {launches}, want {want}")
+    if not all(math.isfinite(t) and t > 0 for t in ms.values()):
+        fail(f"stages: times {ms}")
+    torch.cuda.empty_cache()
+    print("stages " + json.dumps({"card": smi, "stage_ms": ms, "shapes": shapes,
+                                  **profile_serving.summary(ms, repeats)}))
+    return launches
+
+
+def check_loader(smi, demand):
+    """Phase 27: ``bench_loader`` on a synthetic on-disk set of
+    ``LOADER_FILES`` files per speaker, each variant in process and at
+    each of the JAX script's worker counts, batches uploaded to the card;
+    ``demand`` is the utterances per second the B=16 bfloat16 train step
+    took in this run (``config_zoo``'s RTFS-Net-4 row). Returns the
+    launches (none)."""
+    import tempfile
+
+    import torch
+
+    from rtfs_net_tpu_torch.scripts import bench_loader
+
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        bench_loader.make_dataset(root, LOADER_FILES)
+        made = time.perf_counter() - t0
+        reset_launch_counts()
+        results = bench_loader.bench(root, torch.device("cuda"), LOADER_WORKERS)
+        launches = launch_counts()
+    if any(launches.values()):
+        fail(f"loader: launches {launches}")
+    best_av = max(v for k, v in results.items() if k.startswith("av_"))
+    print("loader " + json.dumps({"card": smi, "files": LOADER_FILES, "make_s": made,
+                                  "nproc": os.cpu_count(), "best_av": best_av,
+                                  "train_demand_b16": demand, "headroom_x": best_av / demand,
+                                  **results}))
+    return launches
 
 
 def main():
@@ -3146,13 +3412,20 @@ def main():
         torch.cuda.empty_cache()
         parallel_launches = check_parallel(root)
     zoo = check_layer_zoo(smi)
+    proofs = check_proofs(smi)
+    config_zoo, zoo_rows = check_config_zoo(smi)
+    sweep_launches = check_sweep(smi)
+    stage_launches = check_stages(smi)
+    rtfs4 = next(row for row in zoo_rows if row["config"] == "lrs2_RTFSNet_4_layer")
+    check_loader(smi, rtfs4[f"train_b{TRAIN_BATCHES[-1]}_utt_per_s"])
     by_path = {"serving": launches, "serving_from_frames": frame_launches,
                "per_direction": direction_launches, "train": train_launches,
                "fit": fit_launches, "evaluate": eval_launches, "separate": separate_launches,
                "export": export_launches, "ctcnet": ctcnet_launches,
                **{f"video_zoo_{path}": counts for path, counts in zoo_launches.items()},
                "bench": bench_launches, "parallel": parallel_launches,
-               **{f"layer_zoo_{path}": counts for path, counts in zoo.items()}}
+               **{f"layer_zoo_{path}": counts for path, counts in zoo.items()},
+               **proofs, **config_zoo, "sweep": sweep_launches, "stages": stage_launches}
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     # no single PyTorch call computes an SRU recurrence or its backward;

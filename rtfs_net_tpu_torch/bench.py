@@ -52,67 +52,85 @@ def launch_counts():
             "K4": sru_direction.launches}
 
 
-def _launched(fn):
+def launched(fn):
+    """``fn()`` and the kernel launches it made, by kernel."""
     before = launch_counts()
     out = fn()
     return out, {k: n - before[k] for k, n in launch_counts().items()}
+
+
+def request_pool(batch, samples, lip_channels, rng, pool=4):
+    """``pool`` (batch, samples) mixtures, then a (batch, lip_channels,
+    frames) lip embedding scaled by 0.1, from ``rng``, as numpy arrays
+    (``bench.py:47-54``)."""
+    mixes = [rng.standard_normal((batch, samples)).astype(np.float32) for _ in range(pool)]
+    frames = int(round(samples / 16000 * 25))
+    mouth = rng.standard_normal((batch, lip_channels, frames)).astype(np.float32) * 0.1
+    return mixes, mouth
+
+
+def serving_ms(model, mix_pool, mouth, device, iters=6):
+    """Min ms of ``separate`` in bfloat16 on the whole batch over ``iters``
+    calls, call i on ``mix_pool[i % len] + i·1e-6`` (one warm-up first),
+    after a check that a float32 slice of up to 8 gives finite output:
+    ``iters + 2`` forwards in all."""
+    from .utils.profiling import timed
+    from .utils.separator import separate
+
+    out = separate(model, mix_pool[0][:8], mouth[:8], device=device)
+    if not bool(torch.isfinite(out).all()):
+        raise RuntimeError("bench: non-finite output")
+    return timed(lambda m: separate(model, m, mouth, device=device, dtype=torch.bfloat16),
+                 lambda i: (mix_pool[i % len(mix_pool)] + float(i) * 1e-6,),
+                 iters=iters)["min_ms"]
+
+
+def train_ms(conf, model, mix_pool, mouth, batch, device, iters=6):
+    """Min ms of ``System.train_step`` in bfloat16 at ``batch`` over
+    ``iters`` steps (one warm-up first) of a copy of ``model`` with the
+    config's optimizer, the mixture as its own target (``bench.py:83-118``),
+    the training state carried from step to step: ``iters + 1`` steps."""
+    from .losses import PITLossWrapper, pairwise_neg_sisdr, pairwise_neg_snr
+    from .system import System, make_optimizer
+    from .utils.profiling import timed
+
+    trained = copy.deepcopy(model)
+    system = System(trained, make_optimizer(trained.parameters(), **conf["optim"]),
+                    {"train": PITLossWrapper(pairwise_neg_snr),
+                     "val": PITLossWrapper(pairwise_neg_sisdr)},
+                    compute_dtype=torch.bfloat16)
+    generator = torch.Generator(device=device).manual_seed(1)
+    tmouth = mouth[:batch]
+
+    def step(m):
+        return system.train_step((m, m[:, None], tmouth), generator)["loss"]
+
+    return timed(step, lambda i: (mix_pool[i % len(mix_pool)][:batch] + float(i) * 1e-6,),
+                 iters=iters)["min_ms"]
 
 
 def run(conf, device="cuda", batch: int = 128, samples: int = 32000,
         train_batches=(4, 16), iters: int = 6):
     """The benchmark of ``conf`` (a YAML config) on ``device``: returns the
     result (``KEYS``) and the kernel launches of each phase."""
-    from .losses import PITLossWrapper, pairwise_neg_sisdr, pairwise_neg_snr
     from .models import build_model, resolve_device
-    from .system import System, make_optimizer
-    from .utils.profiling import timed
-    from .utils.separator import separate
 
     device = resolve_device(device)
     audionet = conf["audionet"]
     model = build_model(audionet, device=device)
-    rng = np.random.default_rng(0)
-    mix_pool = [torch.from_numpy(rng.standard_normal((batch, samples)).astype(np.float32))
-                .to(device) for _ in range(4)]
-    frames = int(round(samples / 16000 * 25))
-    mouth = torch.from_numpy(
-        rng.standard_normal((batch, audionet["pretrained_vout_chan"], frames))
-        .astype(np.float32) * 0.1).to(device)
+    mixes, mouth = request_pool(batch, samples, audionet["pretrained_vout_chan"],
+                                np.random.default_rng(0))
+    mix_pool = [torch.from_numpy(m).to(device) for m in mixes]
+    mouth = torch.from_numpy(mouth).to(device)
 
-    def serve(m):
-        return separate(model, m, mouth, device=device, dtype=torch.bfloat16)
-
-    def serving():
-        # correctness sanity on a small float32 slice; the timed calls run
-        # bfloat16 at the full serving batch
-        out = separate(model, mix_pool[0][:8], mouth[:8], device=device)
-        if not bool(torch.isfinite(out).all()):
-            raise RuntimeError("bench: non-finite output")
-        return timed(serve, lambda i: (mix_pool[i % len(mix_pool)] + float(i) * 1e-6,),
-                     iters=iters)["min_ms"]
-
-    serve_ms, launches = _launched(serving)
+    serve_ms, launches = launched(lambda: serving_ms(model, mix_pool, mouth, device, iters))
     launches = {"serving": launches}
-
-    train_ms = {}
+    train_times = {}
     for B in train_batches:
-        trained = copy.deepcopy(model)
-        system = System(trained, make_optimizer(trained.parameters(), **conf["optim"]),
-                        {"train": PITLossWrapper(pairwise_neg_snr),
-                         "val": PITLossWrapper(pairwise_neg_sisdr)},
-                        compute_dtype=torch.bfloat16)
-        generator = torch.Generator(device=device).manual_seed(1)
-        tmouth = mouth[:B]
-
-        def step(m):
-            return system.train_step((m, m[:, None], tmouth), generator)["loss"]
-
-        train_ms[B], launches[f"train_b{B}"] = _launched(lambda: timed(
-            step, lambda i: (mix_pool[i % len(mix_pool)][:B] + float(i) * 1e-6,),
-            iters=iters)["min_ms"])
-
+        train_times[B], launches[f"train_b{B}"] = launched(
+            lambda: train_ms(conf, model, mix_pool, mouth, B, device, iters))
     ms_per_utt = serve_ms / batch
-    b4, b16 = train_ms[train_batches[0]], train_ms[train_batches[-1]]
+    b4, b16 = train_times[train_batches[0]], train_times[train_batches[-1]]
     result = {
         "metric": "rtfsnet4_bf16_2s_utterances_per_sec_per_chip",
         "value": round(batch / serve_ms * 1e3, 2),

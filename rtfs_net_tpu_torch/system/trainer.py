@@ -96,21 +96,6 @@ class Trainer:
         self.history = []
 
     # ------------------------------------------------------------------
-    def _prep_batch(self, batch):
-        """(mix, sources, [mouths], key, ...) numpy -> (mix, targets,
-        mouths-or-None) on the device; pinned and copied asynchronously
-        when the device is a card."""
-        arrays = [batch[0], batch[1]]
-        if len(batch) > 2 and isinstance(batch[2], np.ndarray):
-            arrays.append(batch[2])
-        tensors = []
-        for a in arrays:
-            t = torch.from_numpy(a)
-            if self.device.type == "cuda":
-                t = t.pin_memory()
-            tensors.append(t.to(self.device, non_blocking=True))
-        return tensors[0], tensors[1], tensors[2] if len(tensors) > 2 else None
-
     def _batches(self, loader):
         """``loader``'s batches on the device; the host time spent waiting
         for each one is added to ``self._waited``."""
@@ -121,7 +106,7 @@ class Trainer:
             self._waited += time.perf_counter() - t0
             if batch is None:
                 return
-            yield self._prep_batch(batch)
+            yield upload_batch(batch, self.device)
 
     def _print(self, msg: str):
         if self.rank0:
@@ -366,6 +351,22 @@ class _Agreement:
         pending, self.pending = self.pending, None
         earlier = pending is not None and self._read(pending)
         return self._read(self._put(flag)) or earlier
+
+
+def upload_batch(batch, device):
+    """(mix, sources, [mouths], key, ...) numpy -> (mix, targets,
+    mouths-or-None) on ``device``; pinned and copied asynchronously when
+    the device is a card."""
+    arrays = [batch[0], batch[1]]
+    if len(batch) > 2 and isinstance(batch[2], np.ndarray):
+        arrays.append(batch[2])
+    tensors = []
+    for a in arrays:
+        t = torch.from_numpy(a)
+        if device.type == "cuda":
+            t = t.pin_memory()
+        tensors.append(t.to(device, non_blocking=True))
+    return tensors[0], tensors[1], tensors[2] if len(tensors) > 2 else None
 
 
 def _mean(losses) -> float:

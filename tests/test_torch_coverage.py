@@ -3,7 +3,13 @@ function of every JAX module (outside ``ops/pallas/``, whose kernels have
 their CUDA counterparts in ``rtfs_net_tpu_torch/csrc/``) has a counterpart
 of the same name in the port's module at the same path, or is listed in
 ``LEFT_OUT`` with the reason; and the port's ``make_optimizer`` takes
-every name of the JAX registry."""
+every name of the JAX registry.
+
+The same holds for the JAX side's tools outside the package: every
+``.py`` under ``scripts/`` and ``data_preprocess/`` and every root CLI
+that imports ``rtfs_net_tpu`` has a counterpart at
+``rtfs_net_tpu_torch/<same relative path>``, or at the path ``PORTED_AT``
+names, or is listed in ``LEFT_OUT_TOOLS`` with the reason."""
 import ast
 import importlib
 import os
@@ -42,6 +48,73 @@ LEFT_OUT = {
     ("ops/stft.py", "hann_window"): "the JAX STFT's window; the port calls torch.stft",
     ("ops/stft.py", "stft_frames"): "the JAX STFT's framing; the port calls torch.stft",
 }
+
+
+REPO = os.path.join(os.path.dirname(__file__), "..")
+PORT_ROOT = os.path.join(REPO, "rtfs_net_tpu_torch")
+
+# a JAX tool whose port lies at another path than its own -> that path
+PORTED_AT = {
+    "scripts/export_serving.py": "export_serving.py",
+    "scripts/import_checkpoint.py": "import_checkpoint.py",
+}
+# a JAX tool (repo-relative path) -> why the port has no counterpart
+LEFT_OUT_TOOLS = {
+    "scripts/profile_hlo.py":
+        "dumps XLA HLO; the port's counterpart is chip_smoke.py's profile lines, which "
+        "group kernels by name category",
+    "scripts/attr_fusions.py":
+        "attributes time to XLA fusions; the port's counterpart is chip_smoke.py's profile "
+        "lines",
+    "scripts/bench_interp.py":
+        "times selection-matmul interpolation, a TPU lowering the North star leaves out",
+    "scripts/bench_layout_r4.py":
+        "times the tf_order layouts, a TPU lowering the North star leaves out",
+    "scripts/bench_micro_r4.py":
+        "times the tf_order and selection-matmul lowerings the North star leaves out",
+    "scripts/bench_sru_train.py":
+        "the Pallas backward against the scan backward; the port's counterpart is "
+        "scripts/torch_kernel_ab.py",
+    "scripts/profile_stages.py":
+        "the round-2 stage timing, superseded by profile_serving.py (its lines 5-6)",
+    "__graft_entry__.py":
+        "the JAX side's dry-run entry point; the port's are dryrun.py and chip_smoke.py",
+}
+
+
+def _imports_jax_package(path):
+    with open(os.path.join(REPO, path)) as f:
+        tree = ast.parse(f.read())
+    for node in ast.walk(tree):
+        names = ([a.name for a in node.names] if isinstance(node, ast.Import) else
+                 [node.module] if isinstance(node, ast.ImportFrom) and node.level == 0 else [])
+        if any(n.split(".")[0] == "rtfs_net_tpu" for n in names):
+            return True
+    return False
+
+
+def _jax_tools():
+    """Every tool of the JAX side outside its package that imports it."""
+    paths = [os.path.join(d, f) for d in ("scripts", "data_preprocess")
+             for f in sorted(os.listdir(os.path.join(REPO, d))) if f.endswith(".py")]
+    paths += sorted(f for f in os.listdir(REPO) if f.endswith(".py"))
+    return [p for p in paths if _imports_jax_package(p)]
+
+
+@pytest.mark.parametrize("path", _jax_tools())
+def test_every_jax_tool_has_a_counterpart(path):
+    if path in LEFT_OUT_TOOLS:
+        return
+    port = os.path.join(PORT_ROOT, PORTED_AT.get(path, path))
+    assert os.path.isfile(port), f"{path} has no counterpart at {port}"
+    name = os.path.relpath(port, REPO)[:-len(".py")].replace(os.sep, ".")
+    importlib.import_module(name)
+
+
+def test_left_out_tools_exist_and_import_the_jax_package():
+    for path in list(LEFT_OUT_TOOLS) + list(PORTED_AT):
+        assert _imports_jax_package(path), path
+    assert set(LEFT_OUT_TOOLS) | set(PORTED_AT) <= set(_jax_tools())
 
 
 def _jax_modules():

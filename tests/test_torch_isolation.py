@@ -52,21 +52,26 @@ def test_new_modules_are_covered():
             "models/videomodels/autoencoder.py", "train_autoencoder.py",
             "find_unused_params.py", "parallel/__init__.py", "parallel/distributed.py",
             "parallel/mesh.py", "parallel/sync_batchnorm.py", "bench.py",
-            "dryrun.py"} <= names
+            "dryrun.py", "data_preprocess/__init__.py", "data_preprocess/preprocess.py",
+            "scripts/__init__.py", "scripts/train_proof.py", "scripts/av_train_proof.py",
+            "scripts/bench_zoo.py", "scripts/bench_sweep.py", "scripts/profile_serving.py",
+            "scripts/bench_loader.py"} <= names
 
 
 def test_loader_workers_import_no_torch():
     """The data loader's spawned workers import the dataset's package and
     the entry point that started them (the main module: training,
-    evaluation, the smoke run's fake dataset, or the autoencoder's mouth
-    frames); none may load torch, which would cost each worker seconds and
+    evaluation, the smoke run's fake dataset, the autoencoder's mouth
+    frames, or the loader bench); none may load torch, which would cost each worker seconds and
     could open a CUDA context."""
     import subprocess
     import sys
 
     code = ("import sys, rtfs_net_tpu_torch.train, rtfs_net_tpu_torch.test, "
             "rtfs_net_tpu_torch.local_test, rtfs_net_tpu_torch.datas, "
-            "rtfs_net_tpu_torch.train_autoencoder; "
+            "rtfs_net_tpu_torch.train_autoencoder, "
+            "rtfs_net_tpu_torch.scripts.bench_loader, "
+            "rtfs_net_tpu_torch.data_preprocess.preprocess; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in ('torch', 'jax')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=60, check=True).stdout
