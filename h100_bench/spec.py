@@ -1,0 +1,69 @@
+"""What a cell is, found by name: its entry in ``BENCHMARK.json``, the
+configuration file the entry names, the traffic file
+``traffic/<traffic>.json``, the metrics that the cell reports (each read by
+``metrics/<name>.py``, or by ``metrics/<stem>.py`` for a name
+``<stem>.<suffix>``) and its correctness limits ``limits/<workload>.json``."""
+from __future__ import annotations
+
+import dataclasses
+import importlib.util
+import json
+from pathlib import Path
+from typing import Dict, List
+
+import yaml
+
+HERE = Path(__file__).resolve().parent
+ROOT = HERE.parent
+
+
+@dataclasses.dataclass
+class Cell:
+    name: str
+    config_name: str
+    conf: Dict
+    traffic_name: str
+    traffic: Dict
+    end_to_end: List[Dict]
+    per_layer: List[Dict]
+    limits: Dict
+
+
+def load_benchmark(path: Path = ROOT / "BENCHMARK.json") -> Dict:
+    with open(path) as f:
+        return json.load(f)
+
+
+def _reports(metric: Dict, cell: str) -> bool:
+    return cell in metric["workloads"] if "workloads" in metric else True
+
+
+def cell(name: str, bench: Dict = None) -> Cell:
+    bench = bench or load_benchmark()
+    entry = next((w for w in bench["workloads"] if w["name"] == name), None)
+    if entry is None:
+        raise KeyError(f"no workload {name!r} in BENCHMARK.json")
+    config = next(c for c in bench["configs"] if c["name"] == entry["config"])
+    with open(ROOT / config["file"]) as f:
+        conf = yaml.safe_load(f)
+    with open(HERE / "traffic" / f"{entry['traffic']}.json") as f:
+        traffic = json.load(f)
+    with open(HERE / "limits" / f"{name}.json") as f:
+        limits = json.load(f)
+    e2e = [m for m in bench["end_to_end"] if _reports(m, name)]
+    moved = {m["name"] for m in e2e}
+    per_layer = [m for m in bench["per_layer"]
+                 if m["moves"] in moved and _reports(m, name)]
+    return Cell(name, entry["config"], conf, entry["traffic"], traffic, e2e, per_layer, limits)
+
+
+def reader(metric: str):
+    """The module that reads ``metric``."""
+    for stem in (metric, metric.split(".", 1)[0]):
+        path = HERE / "metrics" / f"{stem}.py"
+        if path.exists():
+            spec = importlib.util.spec_from_file_location(f"h100_bench.metrics.{stem}", path)
+            module = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(module)
+            return module
+    raise FileNotFoundError(f"no reader for metric {metric!r} under metrics/")
