@@ -18,6 +18,7 @@ from torch import nn
 from ...ops.conv import Conv, DropPath, Linear
 from ...ops.dropout import dropout
 from ...ops.normalizations import BatchNorm2d, LayerNorm
+from ...utils.profiling import span
 from .conv_blocks import ConvActNorm
 
 
@@ -125,22 +126,23 @@ class MultiHeadSelfAttention2D(nn.Module):
                                             is2d=True)
 
     def forward(self, x):
-        if self.dim == 4:
-            x = x.transpose(-2, -1)
-        B, C, T, F = x.shape
-        q = torch.cat([m(x) for m in self.Queries], 0)  # (H·B, E, T, F)
-        k = torch.cat([m(x) for m in self.Keys], 0)
-        v = torch.cat([m(x) for m in self.Values], 0)   # (H·B, C/H, T, F)
-        q = q.transpose(1, 2).flatten(2)                # (H·B, T, E·F)
-        k = k.transpose(1, 2).flatten(2)
-        cv = v.shape[1]
-        attn = torch.softmax(q @ k.transpose(1, 2) / math.sqrt(q.shape[-1]), dim=-1)
-        out = (attn @ v.transpose(1, 2).flatten(2)).view(-1, T, cv, F).transpose(1, 2)
-        out = out.reshape(self.n_head, B, cv, T, F).transpose(0, 1).reshape(B, C, T, F)
-        out = self.attn_concat_proj(out) + x
-        if self.dim == 4:
-            out = out.transpose(-2, -1)
-        return out
+        with span("rtfs.refine.attention"):
+            if self.dim == 4:
+                x = x.transpose(-2, -1)
+            B, C, T, F = x.shape
+            q = torch.cat([m(x) for m in self.Queries], 0)  # (H·B, E, T, F)
+            k = torch.cat([m(x) for m in self.Keys], 0)
+            v = torch.cat([m(x) for m in self.Values], 0)   # (H·B, C/H, T, F)
+            q = q.transpose(1, 2).flatten(2)                # (H·B, T, E·F)
+            k = k.transpose(1, 2).flatten(2)
+            cv = v.shape[1]
+            attn = torch.softmax(q @ k.transpose(1, 2) / math.sqrt(q.shape[-1]), dim=-1)
+            out = (attn @ v.transpose(1, 2).flatten(2)).view(-1, T, cv, F).transpose(1, 2)
+            out = out.reshape(self.n_head, B, cv, T, F).transpose(0, 1).reshape(B, C, T, F)
+            out = self.attn_concat_proj(out) + x
+            if self.dim == 4:
+                out = out.transpose(-2, -1)
+            return out
 
 
 class GlobalAttention(nn.Module):
@@ -159,7 +161,8 @@ class GlobalAttention(nn.Module):
         self.FFN = get_ffn(ffn_name)(in_chan, hid, kernel_size, dropout=dropout)
 
     def forward(self, x):
-        return self.FFN(self.MHSA(x))
+        with span("rtfs.refine.attention"):
+            return self.FFN(self.MHSA(x))
 
 
 class GlobalAttention2D(nn.Module):

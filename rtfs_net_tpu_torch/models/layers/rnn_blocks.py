@@ -20,6 +20,7 @@ from ...ops.conv import ConvTranspose, Linear, unfold_1d
 from ...ops.dropout import Dropout
 from ...ops.normalizations import LayerNorm
 from ...ops.rnn import GRU, LSTM, get_rnn
+from ...utils.profiling import span
 from .attention_blocks import MultiHeadSelfAttention
 from .conv_blocks import ConvActNorm, FeedForwardNetwork, make_norm
 
@@ -74,29 +75,30 @@ class DualPathRNN(nn.Module):
         self.linear = ConvTranspose(rnn_out, in_chan, kernel_size, ndim=1, stride=stride)
 
     def forward(self, x):
-        if self.dim == 4:
-            x = x.transpose(-2, -1)
-        B, C, old_T, old_F = x.shape
-        k, s = self.kernel_size, self.stride
-        new_T = int(math.ceil((old_T - k) / s) * s + k)
-        new_F = int(math.ceil((old_F - k) / s) * s + k)
-        x = F.pad(x, (0, new_F - old_F, 0, new_T - old_T))
-        residual = x
-        y = self.norm(x)
-        y = y.permute(0, 3, 1, 2).reshape(B * new_F, C, new_T)
-        if self.attn:
-            y = self.rnn(unfold_1d(y, k, s).permute(2, 0, 1))
-        else:
-            y = self.rnn(y, window=(k, s))     # (L, B·F, O)
-        y = y.permute(1, 2, 0)                  # (B·F, O, L)
-        if self.ffn is not None:
-            y = self.ffn(y)
-        y = self.linear(y)                      # (B·F, C, new_T)
-        y = y.reshape(B, new_F, C, new_T).permute(0, 2, 3, 1)
-        y = (y + residual)[..., :old_T, :old_F]
-        if self.dim == 4:
-            y = y.transpose(-2, -1)
-        return y
+        with span("rtfs.refine.rnn"):
+            if self.dim == 4:
+                x = x.transpose(-2, -1)
+            B, C, old_T, old_F = x.shape
+            k, s = self.kernel_size, self.stride
+            new_T = int(math.ceil((old_T - k) / s) * s + k)
+            new_F = int(math.ceil((old_F - k) / s) * s + k)
+            x = F.pad(x, (0, new_F - old_F, 0, new_T - old_T))
+            residual = x
+            y = self.norm(x)
+            y = y.permute(0, 3, 1, 2).reshape(B * new_F, C, new_T)
+            if self.attn:
+                y = self.rnn(unfold_1d(y, k, s).permute(2, 0, 1))
+            else:
+                y = self.rnn(y, window=(k, s))     # (L, B·F, O)
+            y = y.permute(1, 2, 0)                  # (B·F, O, L)
+            if self.ffn is not None:
+                y = self.ffn(y)
+            y = self.linear(y)                      # (B·F, C, new_T)
+            y = y.reshape(B, new_F, C, new_T).permute(0, 2, 3, 1)
+            y = (y + residual)[..., :old_T, :old_F]
+            if self.dim == 4:
+                y = y.transpose(-2, -1)
+            return y
 
 
 class ConvLSTMCell(nn.Module):

@@ -11,6 +11,7 @@ from torch import nn
 from . import separators
 from .fusion import MultiModalFusion
 from .layers import accepted_kwargs
+from ..utils.profiling import span
 
 
 def _separator(params: Dict[str, Any], which: str, in_chan: int) -> nn.Module:
@@ -36,11 +37,13 @@ class RefinementModule(nn.Module):
             **accepted_kwargs(MultiModalFusion, fkw))
 
     def forward(self, audio, video=None):
-        audio_residual, video_residual = audio, video
-        for i in range(self.fusion_repeats):
-            audio = self.audio_net.get_block(i)(audio + audio_residual if i > 0 else audio)
-            video = self.video_net.get_block(i)(video + video_residual if i > 0 else video)
-            audio, video = self.crossmodal_fusion.get_fusion_block(i)(audio, video)
-        for i in range(self.fusion_repeats, self.fusion_repeats + self.audio_repeats):
-            audio = self.audio_net.get_block(i)(audio + audio_residual if i > 0 else audio)
-        return audio
+        with span("rtfs.refinement"):
+            audio_residual, video_residual = audio, video
+            for i in range(self.fusion_repeats):
+                audio = self.audio_net.get_block(i)(audio + audio_residual if i > 0 else audio)
+                video = self.video_net.get_block(i)(video + video_residual if i > 0 else video)
+                with span("rtfs.fusion"):
+                    audio, video = self.crossmodal_fusion.get_fusion_block(i)(audio, video)
+            for i in range(self.fusion_repeats, self.fusion_repeats + self.audio_repeats):
+                audio = self.audio_net.get_block(i)(audio + audio_residual if i > 0 else audio)
+            return audio

@@ -21,6 +21,7 @@ from torch import nn
 from .repeats import RepeatedBlocks
 from ..layers import ConvNormAct
 from ...ops.conv import interpolate_nearest
+from ...utils.profiling import span
 
 
 class FRCNNBlock(nn.Module):
@@ -53,20 +54,22 @@ class FRCNNBlock(nn.Module):
                                            ConvNormAct(hid_chan, in_chan, 1, is2d=is2d))
 
     def forward(self, x):
-        residual = self.gateway(x)
-        downsampled = [self.downsample_layers[0](self.projection(residual))]
-        for layer in self.downsample_layers[1:]:
-            downsampled.append(layer(downsampled[-1]))
-        fused = []
-        for i, here in enumerate(downsampled):
-            parts = ([self.fusion_layers[i][0](downsampled[i - 1])] if i else []) + [here]
-            if i + 1 < self.depth:
-                parts.append(interpolate_nearest(downsampled[i + 1], here.shape[2:]))
-            fused.append(self.concat_layers[i](torch.cat(parts, dim=1)))
-        target = downsampled[0].shape[2:]
-        merged = torch.cat([fused[0]] + [interpolate_nearest(f, target) for f in fused[1:]],
-                           dim=1)
-        return self.residual_conv(merged) + residual
+        with span("rtfs.refine.pyramid"):
+            residual = self.gateway(x)
+            downsampled = [self.downsample_layers[0](self.projection(residual))]
+            for layer in self.downsample_layers[1:]:
+                downsampled.append(layer(downsampled[-1]))
+        with span("rtfs.refine.reconstruct"):
+            fused = []
+            for i, here in enumerate(downsampled):
+                parts = ([self.fusion_layers[i][0](downsampled[i - 1])] if i else []) + [here]
+                if i + 1 < self.depth:
+                    parts.append(interpolate_nearest(downsampled[i + 1], here.shape[2:]))
+                fused.append(self.concat_layers[i](torch.cat(parts, dim=1)))
+            target = downsampled[0].shape[2:]
+            merged = torch.cat([fused[0]] + [interpolate_nearest(f, target) for f in fused[1:]],
+                               dim=1)
+            return self.residual_conv(merged) + residual
 
 
 class FRCNN(RepeatedBlocks):

@@ -18,6 +18,7 @@ from torch import nn
 from .repeats import RepeatedBlocks
 from ..layers import ConvNormAct, InjectionMultiSum, build
 from ...ops.conv import adaptive_avg_pool
+from ...utils.profiling import span
 
 
 class TDANetBlock(nn.Module):
@@ -48,19 +49,21 @@ class TDANetBlock(nn.Module):
         self.residual_conv = ConvNormAct(hid_chan, in_chan, 1, is2d=is2d)
 
     def forward(self, x):
-        residual = self.gateway(x)
-        downsampled = [self.downsample_layers[0](self.projection(residual))]
-        for layer in self.downsample_layers[1:]:
-            downsampled.append(layer(downsampled[-1]))
-        target = downsampled[-1].shape[2:]
-        global_features = sum(adaptive_avg_pool(f, target) for f in downsampled)
+        with span("rtfs.refine.pyramid"):
+            residual = self.gateway(x)
+            downsampled = [self.downsample_layers[0](self.projection(residual))]
+            for layer in self.downsample_layers[1:]:
+                downsampled.append(layer(downsampled[-1]))
+            target = downsampled[-1].shape[2:]
+            global_features = sum(adaptive_avg_pool(f, target) for f in downsampled)
         global_features = self.globalatt(global_features)
-        fused = [self.fusion_layers[i](downsampled[i], global_features)
-                 for i in range(self.depth)]
-        expanded = self.concat_layers[-1](fused[-2], fused[-1]) + downsampled[-2]
-        for i in range(self.depth - 3, -1, -1):
-            expanded = self.concat_layers[i](fused[i], expanded) + downsampled[i]
-        return self.residual_conv(expanded) + residual
+        with span("rtfs.refine.reconstruct"):
+            fused = [self.fusion_layers[i](downsampled[i], global_features)
+                     for i in range(self.depth)]
+            expanded = self.concat_layers[-1](fused[-2], fused[-1]) + downsampled[-2]
+            for i in range(self.depth - 3, -1, -1):
+                expanded = self.concat_layers[i](fused[i], expanded) + downsampled[i]
+            return self.residual_conv(expanded) + residual
 
 
 class TDANet(RepeatedBlocks):

@@ -7,6 +7,7 @@ import numpy as np
 import torch
 
 from ..models import resolve_device
+from .profiling import span
 
 
 def separate(model, wav, mouth_emb=None, *, video_model=None, device="cuda",
@@ -21,13 +22,23 @@ def separate(model, wav, mouth_emb=None, *, video_model=None, device="cuda",
     """
     device = resolve_device(device)
     was_numpy = isinstance(wav, np.ndarray)
-    x = torch.as_tensor(wav, device=device, dtype=torch.float32)
-    emb = None if mouth_emb is None else torch.as_tensor(mouth_emb, device=device).to(dtype)
-    if video_model is not None and emb is None:
+    if video_model is not None and mouth_emb is None:
         raise ValueError("video_model needs the mouth-ROI frames as the third argument")
-    with torch.inference_mode():
-        if video_model is not None:
-            emb = video_model(emb)
-        out = model(x.to(dtype), emb).float()
-        out = out * (x.abs().sum() / (out.abs().sum() + 1e-8))
-    return out.cpu().numpy() if was_numpy else out
+    with span("rtfs.separate", f"batch={len(wav)}"):
+        with span("rtfs.separate.upload"):
+            x = torch.as_tensor(wav, device=device, dtype=torch.float32)
+            inp = x.to(dtype)
+            emb = (None if mouth_emb is None
+                   else torch.as_tensor(mouth_emb, device=device).to(dtype))
+        with torch.inference_mode():
+            if video_model is not None:
+                with span("rtfs.video"):
+                    emb = video_model(emb)
+            with span("rtfs.avnet"):
+                out = model(inp, emb)
+            out = out.float()
+            out = out * (x.abs().sum() / (out.abs().sum() + 1e-8))
+        if not was_numpy:
+            return out
+        with span("rtfs.separate.download"):
+            return out.cpu().numpy()
