@@ -3,13 +3,20 @@
 
     python3 chip_smoke.py        # from the repo root; needs one CUDA card and nvcc
 
-Phases (any failure exits non-zero before the final line):
+Phases (any failure exits non-zero before the final line). Wherever a
+phase counts K1's launches on an inference path, the SRU DualPathRNN's two
+layout kernels (``csrc/dual_path.cu``) launch once each per SRU
+DualPathRNN call, a quarter of K1's count on RTFS-Net's stacks of four
+(8 each per RTFS-Net-4 forward, 2 per TDANet repeat), and the counts are
+held to that as to K1's; paths without K1 (training, the per-direction
+route, LSTM DualPathRNNs, CTCNet) launch neither.
 
 1. preconditions: a CUDA card; prints ``nvidia-smi``'s name and power limit.
-2. build: the four kernel sources (``csrc/sru_stack_layer.cu``, the
+2. build: the five kernel sources (``csrc/sru_stack_layer.cu``, the
    inference SRU kernel K1; ``csrc/sru_train.cu``, the training SRU
    kernels K2; ``csrc/dw_conv.cu``, the depthwise stencil K3;
-   ``csrc/sru_direction.cu``, the per-direction SRU kernel K4) with one
+   ``csrc/sru_direction.cu``, the per-direction SRU kernel K4;
+   ``csrc/dual_path.cu``, the DualPathRNN's layout kernels) with one
    ``nvcc`` each, started together, into
    ``rtfs_net_tpu_torch/csrc/build/``, and beside them the native PESQ and
    crc32c extension from ``native/`` (g++), timed.
@@ -22,7 +29,13 @@ Phases (any failure exits non-zero before the final line):
    ``torch.library.opcheck`` of the registered op ``rtfs::sru_stack_layer``
    on small edge shapes (k = 3 and 4, one direction, bfloat16 at an odd
    offset): schema, fake implementation against the kernel's outputs,
-   autograd registration, AOT dispatch.
+   autograd registration, AOT dispatch. Then the DualPathRNN's layout
+   kernels ``dual_path_norm_in`` and ``dual_path_out`` against their
+   plain versions along T and F at the B = 128 bfloat16 block
+   (128, 64, 126, 65), the B = 16 float32 one and small odd planes, and K1
+   with 7 zero end steps (``pad``) at that block's F and T passes; their
+   times at B = 128 beside their plain versions' and the bytes' bound;
+   ``opcheck`` of both ops.
 4. kernel K3: against its plain version at (B, 64, 251, 129) and
    (B, 64, 125, 64) for B = 16 and 128 with the 4x4 kernel and pads (1, 2)
    of the main path, and at small shapes with a 3x3, a 2x3 and a 7x2
@@ -116,8 +129,9 @@ Phases (any failure exits non-zero before the final line):
    launches; the outputs finite and of the input's length.
 17. export: ``python -m rtfs_net_tpu_torch.export_serving`` on the
    experiment ``fit`` exported, float32, buckets (1, 4), traced on the
-   card: each bucket's graph holds 32 ``rtfs::sru_stack_layer`` and 40
-   ``rtfs::dw_conv2d_same`` nodes and no other ``rtfs::`` node. Loaded with
+   card: each bucket's graph holds 32 ``rtfs::sru_stack_layer``, 40
+   ``rtfs::dw_conv2d_same`` and 8 each of ``rtfs::dual_path_norm_in`` and
+   ``rtfs::dual_path_out`` nodes and no other ``rtfs::`` node. Loaded with
    ``export.load_artifact``, it serves requests of B = 1, 3 (padded to 4),
    4 and 5 (4 + 1), each within 1e-5·max|ref| of the same weights run
    eagerly under cuDNN's deterministic algorithms, each bucket call
@@ -351,6 +365,16 @@ DW_PLANES = {(251, 129): 3, (125, 64): 7}  # K3 launches per TDANet block, by (T
 DW_KERNEL, DW_PADS = (4, 4), ((1, 2), (1, 2))
 DW_LAUNCHES = REPEATS * sum(DW_PLANES.values())  # 40 per forward
 SRU_LAUNCHES = REPEATS * 2 * sum(SRU_LAYERS.values())  # 32 per forward: 2 DualPathRNNs
+# DualPathRNN calls per forward, each one launch of each layout kernel
+# (dual_path.cu: the pass into K1's layout and the pass out of it)
+DUAL_PATH_CALLS = REPEATS * 2  # 8
+# the kernels a serving forward launches, and how often
+SERVE_LAUNCHES = {"K1": SRU_LAUNCHES, "K3": DW_LAUNCHES, "dual_path_norm_in": DUAL_PATH_CALLS,
+                  "dual_path_out": DUAL_PATH_CALLS}
+# the layout kernels' (C, T, F) plane: RTFS-Net-4's global features from the
+# benchmark's 2 s frames (F = 65 leaves a partial tile); the DualPathRNN's
+# kernel size, whose k - 1 zero end steps K1 writes around its last layer
+DUAL_PATH_PLANE, DUAL_PATH_KERNEL = (64, 126, 65), 8
 # small K3 cases: (shape, kernel, pads); the last takes the generic kernel
 DW_SMALL = [((2, 5, 33, 17), (3, 3), ((1, 1), (1, 1))),
             ((3, 4, 19, 40), (2, 3), ((0, 1), (1, 1))),
@@ -376,6 +400,7 @@ SRU_DIR_EDGE = [(L, rows, H, 0) for L in (1, 2) for rows in (125, 63, 500)] + [
     (57, 125, 33, 0), (57, 63, 7, 0), (57, 500, 32, 1), (118, 64, 32, 3)]
 PROFILE_ITERS, PROFILE_TOP = 3, 6  # profiled forwards per (dtype, B); kernels listed
 PROFILE_CATEGORIES = [  # kernel name regexes, first match wins
+    ("dual_path_kernel", r"dual_path"),
     ("sru_kernel", r"sru_stack_layer"),
     ("sru_train_kernel", r"sru_train"),
     ("sru_direction_kernel", r"sru_direction"),
@@ -389,7 +414,7 @@ PROFILE_CATEGORIES = [  # kernel name regexes, first match wins
     ("elementwise", r"elementwise|vectorized|unrolled|prelu|sigmoid|relu|add|mul"),
 ]
 # the kernel categories a serving forward and a train step launch
-SERVING_CATEGORIES = ("sru_kernel", "dw_conv_kernel")
+SERVING_CATEGORIES = ("sru_kernel", "dw_conv_kernel", "dual_path_kernel")
 TRAIN_CATEGORIES = ("sru_train_kernel", "dw_conv_kernel")
 SAMPLES, LIP_CHANNELS, LIP_FRAMES = 32000, 512, 50
 # bf16 kernel vs the plain version on the same bf16 inputs: both carry and
@@ -429,9 +454,9 @@ def event_ms(fn, reps, warmup=2):
 
 
 def kernel_modules():
-    from rtfs_net_tpu_torch.ops.kernels import dw_conv, sru, sru_direction, sru_train
+    from rtfs_net_tpu_torch.ops.kernels import dual_path, dw_conv, sru, sru_direction, sru_train
 
-    return sru, sru_train, dw_conv, sru_direction
+    return sru, sru_train, dw_conv, sru_direction, dual_path
 
 
 def launch_counts():
@@ -442,9 +467,9 @@ def launch_counts():
 
 
 def reset_launch_counts():
-    ksru, ktrain, kdw, kdir = kernel_modules()
+    ksru, ktrain, kdw, kdir, kdp = kernel_modules()
     ksru.launches = ktrain.forward_launches = ktrain.backward_launches = 0
-    kdw.launches = kdir.launches = 0
+    kdw.launches = kdir.launches = kdp.norm_in_launches = kdp.out_launches = 0
 
 
 def launches_of(fn, want, what):
@@ -685,7 +710,7 @@ def check_dw_conv_kernel():
     Returns the sums over the 40 launches of a B=16 float32 forward."""
     import torch
 
-    _, _, kdw, _ = kernel_modules()
+    _, _, kdw, _, _ = kernel_modules()
     gen = torch.Generator(device="cuda").manual_seed(9)
     per_forward = collections.Counter()
     max_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
@@ -803,7 +828,7 @@ def check_dw_forward_dx(shape, kernel, pads, offset, dtype, gen, what):
     max abs errors."""
     import torch
 
-    _, _, kdw, _ = kernel_modules()
+    _, _, kdw, _, _ = kernel_modules()
     (lo_t, hi_t), (lo_f, hi_f) = pads
     dx_pads = ((kernel[0] - 1 - lo_t, kernel[0] - 1 - hi_t),
                (kernel[1] - 1 - lo_f, kernel[1] - 1 - hi_f))
@@ -837,7 +862,7 @@ def check_sru_direction_kernel():
     the sums over the 64 launches of a B=16 float32 forward."""
     import torch
 
-    _, _, _, kdir = kernel_modules()
+    _, _, _, kdir, _ = kernel_modules()
     gen = torch.Generator(device="cuda").manual_seed(10)
     O = 2 * H
     sums = collections.defaultdict(collections.Counter)  # per (B, dtype) forward
@@ -905,7 +930,7 @@ def check_sru_direction_edges(gen, max_err, depths):
     depth to ``depths``."""
     import torch
 
-    _, _, _, kdir = kernel_modules()
+    _, _, _, kdir, _ = kernel_modules()
     for L, rows, Hd, offset in SRU_DIR_EDGE:
         for dtype, reverse in itertools.product((torch.float32, torch.bfloat16), (False, True)):
             u = edge_operand((L, rows, 4, 2 * Hd), dtype, offset, gen)
@@ -970,7 +995,7 @@ def serving_setup():
 def check_serving(label, model, requests, video=None, want=None):
     """One serving path: a counted forward per request (float32; bfloat16
     at the big batch), each launching the kernels ``want`` says (default:
-    K1 32, K3 40), then B=1 against the CPU, then timings. ``requests``
+    ``SERVE_LAUNCHES``, K1 32, K3 40 and each layout kernel 8), then B=1 against the CPU, then timings. ``requests``
     maps B to (mixture, lip embedding), or with ``video`` to (mixture,
     frames). Returns the path's launch counts, its outputs by B and its
     timings by dtype and B."""
@@ -985,7 +1010,7 @@ def check_serving(label, model, requests, video=None, want=None):
         mix, third = requests[B]
         return separate(model, mix, third, video_model=video, dtype=dtype)
 
-    want = want or {"K1": SRU_LAUNCHES, "K3": DW_LAUNCHES}
+    want = want or SERVE_LAUNCHES
     reset_launch_counts()
     outs = {B: launches_of(lambda: forward(B, dtypes(B)[0]), want, f"{label} B={B}")
             for B in requests}
@@ -1047,7 +1072,7 @@ def check_bench_point(model):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = launches_of(lambda: separate(model, mix, emb, dtype=torch.bfloat16),
-                          {"K1": 32, "K3": DW_LAUNCHES}, f"serving B={BIG_BATCH} call {i}")
+                          SERVE_LAUNCHES, f"serving B={BIG_BATCH} call {i}")
         if i:  # call 0 is the warm-up
             times.append((time.perf_counter() - t0) * 1e3)
         if tuple(out.shape) != (BIG_BATCH, 1, SAMPLES) or not bool(torch.isfinite(out).all()):
@@ -1058,7 +1083,7 @@ def check_bench_point(model):
         "dtype": "bfloat16", "B": BIG_BATCH, "timing": "bench.py: min of 6 distinct inputs",
         "ms_per_forward_min": times[0], "ms_per_forward_median": times[len(times) // 2],
         "ms_per_utt_min": times[0] / BIG_BATCH, "utt_per_s": BIG_BATCH / times[0] * 1e3,
-        "launches_per_forward": {"K1": 32, "K3": DW_LAUNCHES},
+        "launches_per_forward": SERVE_LAUNCHES,
         "peak_mem_GiB": torch.cuda.max_memory_allocated() / 2 ** 30}))
     return times[0] / BIG_BATCH
 
@@ -1568,7 +1593,7 @@ class FitWatch:
         if want_step is None:
             want_step = {"K2_forward": 64, "K2_backward": 32, "K3": 3 * DW_LAUNCHES}
         if want_val is None:
-            want_val = {"K1": 32, "K3": DW_LAUNCHES}
+            want_val = SERVE_LAUNCHES
         for calls, want, kind in ((self.steps, want_step, "train step"),
                                   (self.vals, want_val, "validation batch")):
             if not calls:
@@ -1816,9 +1841,9 @@ class EvalWatch:
         evaluation.forward_batch = self.original
 
     def check_launches(self, stats):
-        """Every batch launched K1 32 and K3 ``DW_LAUNCHES`` times and
-        nothing else, and the engine timed the batches on the card."""
-        want = {"K1": 32, "K3": DW_LAUNCHES}
+        """Every batch launched ``SERVE_LAUNCHES`` (K1 32, K3 40, each
+        layout kernel 8) and nothing else, and the engine timed the batches on the card."""
+        want = SERVE_LAUNCHES
         for i, (got, size) in enumerate(self.calls):
             if got != {k: want.get(k, 0) for k in got}:
                 fail(f"evaluate: batch {i} (of {size}) launched {got}, want {want} and no others")
@@ -1953,7 +1978,7 @@ def check_separate_cli(root, exp_dir):
                 "--chunk-seconds", str(chunk), "--device", "cuda"]
         t0 = time.perf_counter()
         (path,) = launches_of(lambda: separate_cli.main(separate_cli.parse_args(argv)),
-                              {"K1": 32, "K3": DW_LAUNCHES}, f"separate chunk={chunk}")
+                              SERVE_LAUNCHES, f"separate chunk={chunk}")
         times[chunk] = (time.perf_counter() - t0) * 1e3
         out, sr = wavio.read(path)
         if sr != 16000 or out.shape != (n,) or not np.isfinite(out).all() or \
@@ -2019,9 +2044,10 @@ def check_export(root, exp_dir, smi):
     """The serving artifact on the card (phase 17): ``export_serving``'s CLI on
     the experiment ``fit`` exported (float32, buckets ``EXPORT_BUCKETS``) and
     on the serving phase's random-weight model (bfloat16, B = 128); each
-    bucket's graph holds ``SRU_LAUNCHES`` K1 and ``DW_LAUNCHES`` K3 op nodes
-    and no other ``rtfs::`` node; each bucket call launches those kernels
-    that often and nothing else. Returns the launch counts of the path's
+    bucket's graph holds ``SRU_LAUNCHES`` K1 and ``DW_LAUNCHES`` K3 op nodes,
+    ``DUAL_PATH_CALLS`` of each DualPathRNN pass and no other ``rtfs::``
+    node; each bucket call launches those kernels that often and nothing
+    else. Returns the launch counts of the path's
     artifact calls (the served requests and ``separate --model
     model.rtfsx``), counted from 0 just before them."""
     import numpy as np
@@ -2033,8 +2059,9 @@ def check_export(root, exp_dir, smi):
     from rtfs_net_tpu_torch.datas import wavio
     from rtfs_net_tpu_torch.models import build_model, serialization
 
-    want_nodes = {"sru_stack_layer": SRU_LAUNCHES, "dw_conv2d_same": DW_LAUNCHES}
-    per_call = {"K1": SRU_LAUNCHES, "K3": DW_LAUNCHES}
+    want_nodes = {"sru_stack_layer": SRU_LAUNCHES, "dw_conv2d_same": DW_LAUNCHES,
+                  "dual_path_norm_in": DUAL_PATH_CALLS, "dual_path_out": DUAL_PATH_CALLS}
+    per_call = SERVE_LAUNCHES
 
     def exported(ckpt, out, *flags):
         argv = ["--ckpt", ckpt, "--out", out, "--device", "cuda", *flags]
@@ -2372,7 +2399,7 @@ def check_dw_conv_planes():
     import torch
     import torch.nn.functional as F
 
-    _, _, kdw, _ = kernel_modules()
+    _, _, kdw, _, _ = kernel_modules()
     gen = torch.Generator(device="cuda").manual_seed(14)
     pads, frames = ((1, 1), (1, 1)), SHUFFLE_PLANE_BATCH * VIDEO_FRAMES
     rows = []
@@ -2457,7 +2484,7 @@ def check_video_zoo(root, smi):
     requests = frame_requests_for(SERVE_BATCHES + (BIG_BATCH,), gen)
     paths["shufflenet_serving"], outs, out["shufflenet_serving"] = check_serving(
         "serving from frames (shufflenet)", model, requests, video,
-        {"K1": SRU_LAUNCHES, "K3": DW_LAUNCHES + SHUFFLE_DW_LAUNCHES})
+        {**SERVE_LAUNCHES, "K3": DW_LAUNCHES + SHUFFLE_DW_LAUNCHES})
     del outs
     mix, frames = requests[BIG_BATCH]
     profile = profile_line({"from": "frames (shufflenet)", "dtype": "bfloat16", "B": BIG_BATCH},
@@ -2598,7 +2625,7 @@ def check_bench(bench_point_ms_per_utt):
     if not all(math.isfinite(v) for k, v in result.items() if k not in ("metric", "unit")):
         fail(f"bench: non-finite values {result}")
     step = {"K2_forward": 64, "K2_backward": 32, "K3": 3 * DW_LAUNCHES}
-    per_call = {"serving": ({"K1": SRU_LAUNCHES, "K3": DW_LAUNCHES}, 2 + BENCH_TIMED),
+    per_call = {"serving": (SERVE_LAUNCHES, 2 + BENCH_TIMED),
                 "train_b4": (step, 1 + BENCH_TIMED), "train_b16": (step, 1 + BENCH_TIMED)}
     for phase, (counts, calls) in per_call.items():
         want = {k: counts.get(k, 0) * calls for k in launch_counts()}
@@ -2787,9 +2814,10 @@ def dpt_conf():
 
 
 def dpt_launches(conf):
-    """K1 and K3 launches of one serving forward of an AVNet whose audio net
-    is the DPTNet of ``conf``: every repeat runs each SRU DualPathRNN layer
-    (one K1 launch each) and each GlobalAttention2D's group FFN twice (one
+    """K1, K3 and layout-kernel launches of one serving forward of an AVNet
+    whose audio net is the DPTNet of ``conf``: every repeat runs each SRU
+    DualPathRNN layer (one K1 launch each, and one of each layout kernel per
+    DualPathRNN) and each GlobalAttention2D's group FFN twice (one
     K3 launch each: its 2-D depthwise refiner). A train step launches K2
     forward twice per layer (the checkpointed block runs again in the
     backward), K2 backward once, and K3 three times per conv (forward,
@@ -2800,7 +2828,9 @@ def dpt_launches(conf):
                                  if l["layer_type"] == "DualPathRNN" and l["rnn_type"] == "SRU")
     k3 = params["repeats"] * sum(2 for l in layers
                                  if l["layer_type"] == "GlobalAttention2D" and l["group_ffn"])
-    return ({"K1": k1, "K3": k3},
+    dp = params["repeats"] * sum(1 for l in layers
+                                 if l["layer_type"] == "DualPathRNN" and l["rnn_type"] == "SRU")
+    return ({"K1": k1, "K3": k3, "dual_path_norm_in": dp, "dual_path_out": dp},
             {"K2_forward": 2 * k1, "K2_backward": k1, "K3": 3 * k3})
 
 
@@ -2985,27 +3015,38 @@ def rtfs4_optim():
         return yaml.safe_load(f)["optim"]
 
 
-def check_kernels_at(what, sru_passes, serve, train, dw_cases, gen):
+def check_kernels_at(what, sru_passes, serve, train, dw_cases, gen, dual_path=()):
     """K1, K2 and K3 against their plain versions at one path's shapes: K1
     at (L, k·64, rows·B) for each (L, rows) of ``sru_passes`` and each (B,
-    dtype) of ``serve``; K2's forward and backward at each (B, dtype) of
+    dtype) of ``serve``, as is and with the DualPathRNN's ``DUAL_PATH_KERNEL``
+    - 1 zero end steps (``pad``: the ends all zero, the middle against the
+    plain version); K2's forward and backward at each (B, dtype) of
     ``train``; both for k = 4 and 3; K3's forward and dx at each (shape,
-    kernel, dtype) of ``dw_cases`` with the kernel's centred pads. Fails
-    out of tolerance; returns the rows."""
+    kernel, dtype) of ``dw_cases`` with the kernel's centred pads; the
+    DualPathRNN's two layout kernels along T and F at each ((B, C, T, F),
+    dtype) of ``dual_path``. Fails out of tolerance; returns the rows."""
     import torch
 
-    ksru, ktrain, _, _ = kernel_modules()
+    ksru, ktrain, _, _, kdp = kernel_modules()
     rows = []
+    pad = DUAL_PATH_KERNEL - 1
     for (L, per_utt), (B, dtype), k in itertools.product(sru_passes, serve, (4, 3)):
         sets, v, b = sru_inputs(L, per_utt * B, k, dtype, gen, 1)
         u, skip = sets[0]
+        want = ksru.sru_stack_layer_ref(u, skip, v, b, H=H, k=k, ndir=2)
         got = ksru.sru_stack_layer(u, skip, v, b, H=H, k=k, ndir=2)
-        ok, err = sru_tolerance_ok(got, ksru.sru_stack_layer_ref(u, skip, v, b, H=H, k=k,
-                                                                ndir=2), dtype)
+        ok, err = sru_tolerance_ok(got, want, dtype)
+        got = ksru.sru_stack_layer(u, skip, v, b, H=H, k=k, ndir=2, pad=pad)
+        ok_pad, err_pad = sru_tolerance_ok(got[pad:L + pad], want, dtype)
+        ends_zero = not (got[:pad].any() or got[L + pad:].any())
         rows.append({"kernel": "K1", "L": L, "B": B, "k": k, "dtype": dtype_name(dtype),
-                     "max_abs_err": err})
+                     "max_abs_err": err, "pad": pad, "pad_max_abs_err": err_pad})
         if not ok:
             fail(f"sru_stack_layer at {what} L={L} B={B} k={k} {dtype}: {err}")
+        if not (ok_pad and ends_zero and got.shape[0] == L + 2 * pad):
+            fail(f"sru_stack_layer pad={pad} at {what} L={L} B={B} k={k} {dtype}: {err_pad}, "
+                 f"zero end steps {ends_zero}, {tuple(got.shape)}")
+        del sets, u, skip, want, got
     for (L, per_utt), (B, dtype), k in itertools.product(sru_passes, train, (4, 3)):
         sets, v, b = sru_inputs(L, per_utt * B, k, dtype, gen, 1)
         u, skip = sets[0]
@@ -3035,7 +3076,100 @@ def check_kernels_at(what, sru_passes, serve, train, dw_cases, gen):
         err, dx_err = check_dw_forward_dx(shape, kernel, pads, 0, dtype, gen, what)
         rows.append({"kernel": "K3", "x": shape, "dtype": dtype_name(dtype),
                      "max_abs_err": err, "dx_max_abs_err": dx_err})
+    for (shape, dtype), seq_dim in itertools.product(dual_path, (2, 3)):
+        for name, got, want in dual_path_pair(kdp, shape, dtype, seq_dim, gen):
+            ok, err = tolerance_ok(got, want, dtype)
+            rows.append({"kernel": name, "x": shape, "seq_dim": seq_dim,
+                         "dtype": dtype_name(dtype), "max_abs_err": err})
+            if not (ok and got.shape == want.shape and got.is_contiguous()):
+                fail(f"{name} at {what} {shape} seq_dim={seq_dim} {dtype}: {err}, "
+                     f"{tuple(got.shape)}")
     return rows
+
+
+def dual_path_inputs(shape, dtype, seq_dim, gen):
+    """Inputs of both layout kernels at a (B, C, T, F) ``shape``: x (scaled and
+    shifted, as a block's features are not centred), gamma, beta, the
+    overlap-add's z in K1's layout, its bias and the residual."""
+    import torch
+
+    from rtfs_net_tpu_torch.ops.kernels import dual_path
+
+    C = shape[1]
+    S, rows = dual_path.seq_shape(shape, seq_dim)
+
+    def randn(*size):
+        return torch.randn(size, generator=gen, device="cuda")
+
+    x = (3 * randn(*shape) + 1).to(dtype)
+    gamma, beta = 1 + 0.1 * randn(C), 0.1 * randn(C)
+    z, bias, residual = randn(S, C, rows).to(dtype), randn(C), randn(*shape).to(dtype)
+    return (x, gamma, beta), (z, bias, residual)
+
+
+def dual_path_pair(kdp, shape, dtype, seq_dim, gen):
+    """(name, kernel's output, plain version's output) of each layout kernel."""
+    (x, gamma, beta), (z, bias, residual) = dual_path_inputs(shape, dtype, seq_dim, gen)
+    return [("dual_path_norm_in", kdp.dual_path_norm_in(x, gamma, beta, seq_dim=seq_dim, eps=1e-5),
+             kdp.dual_path_norm_in_ref(x, gamma, beta, seq_dim, 1e-5)),
+            ("dual_path_out", kdp.dual_path_out(z, bias, residual, seq_dim=seq_dim),
+             kdp.dual_path_out_ref(z, bias, residual, seq_dim))]
+
+
+def check_dual_path_kernels():
+    """The SRU DualPathRNN's layout kernels (``csrc/dual_path.cu``) and K1's
+    zero end steps, through ``check_kernels_at``, at the B = 128 bfloat16
+    block of ``DUAL_PATH_PLANE`` (K1 at its F and T passes) and the B = 16
+    float32 one of ``ZOO_PLANE``, along T and F, then at small odd planes;
+    each kernel's device time at B = 128 along both axes beside its plain
+    version's and its bytes' bound; ``opcheck`` of both ops. Returns each
+    kernel's row for the ``kernels`` line: the worst error, and ms,
+    plain_ms and the bound averaged over the two axes (the same bytes)."""
+    import torch
+
+    _, _, _, _, kdp = kernel_modules()
+    gen = torch.Generator(device="cuda").manual_seed(40)
+    bf16, f32 = torch.bfloat16, torch.float32
+    C, T, F_ = DUAL_PATH_PLANE
+    big = (BIG_BATCH, *DUAL_PATH_PLANE)
+    passes = [(F_ - DUAL_PATH_KERNEL + 1, T), (T - DUAL_PATH_KERNEL + 1, F_)]
+    small = [((3, 5, 37, 33), dtype) for dtype in (f32, bf16)] + [
+        ((1, 1, 1, 1), f32), ((2, 7, 1, 40), bf16)]
+    rows = check_kernels_at(f"the B={BIG_BATCH} block", passes, [(BIG_BATCH, bf16)], [], [], gen,
+                            [(big, bf16), ((16, *ZOO_PLANE), f32)] + small)
+    print("dual_path kernels " + json.dumps(rows))
+    worst = {name: max(r["max_abs_err"] for r in rows if r["kernel"] == name and r["x"] == big)
+             for name in ("dual_path_norm_in", "dual_path_out")}
+    item = torch.tensor([], dtype=bf16).element_size()
+    numel = BIG_BATCH * C * T * F_
+    # bytes per launch: norm_in reads x, writes y; out reads z and the residual, writes out
+    moved = {"dual_path_norm_in": 2 * numel * item, "dual_path_out": 3 * numel * item}
+    timed = {name: collections.Counter() for name in moved}
+    for seq_dim in (2, 3):
+        (x, gamma, beta), (z, bias, residual) = dual_path_inputs(big, bf16, seq_dim, gen)
+        calls = {"dual_path_norm_in": (
+            lambda: kdp.dual_path_norm_in(x, gamma, beta, seq_dim=seq_dim, eps=1e-5),
+            lambda: kdp.dual_path_norm_in_ref(x, gamma, beta, seq_dim, 1e-5)),
+            "dual_path_out": (lambda: kdp.dual_path_out(z, bias, residual, seq_dim=seq_dim),
+                              lambda: kdp.dual_path_out_ref(z, bias, residual, seq_dim))}
+        for name, (kernel, plain) in calls.items():
+            ms, plain_ms = event_ms(kernel, reps=20), event_ms(plain, reps=3, warmup=1)
+            bound_ms = moved[name] / HBM_BYTES_PER_S * 1e3
+            print(f"{name} " + json.dumps({
+                "x": list(big), "seq_dim": seq_dim, "dtype": "bfloat16", "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_share": bound_ms / ms,
+                "GB_per_s": moved[name] / ms / 1e6}))
+            timed[name].update({"ms": ms / 2, "plain_ms": plain_ms / 2, "bound_ms": bound_ms / 2})
+        del x, gamma, beta, z, bias, residual
+    norm_cases, out_cases = [], []
+    for shape, seq_dim, dtype in (((2, 5, 9, 7), 2, f32), ((2, 5, 9, 7), 3, bf16)):
+        (x, gamma, beta), (z, bias, residual) = dual_path_inputs(shape, dtype, seq_dim, gen)
+        norm_cases.append((x, gamma, beta, seq_dim, 1e-5))
+        out_cases.append((z, bias, residual, seq_dim))
+    opcheck("dual_path_norm_in", norm_cases)
+    opcheck("dual_path_out", out_cases)
+    return {name: {"max_abs_err": worst[name], **acc, "bound_by": "bytes"}
+            for name, acc in timed.items()}
 
 
 def check_zoo_kernels():
@@ -3048,7 +3182,7 @@ def check_zoo_kernels():
     import torch
     import torch.nn.functional as F
 
-    _, _, kdw, _ = kernel_modules()
+    _, _, kdw, _, _ = kernel_modules()
     gen = torch.Generator(device="cuda").manual_seed(25)
     dtypes = (torch.float32, torch.bfloat16)
     plane = next(iter(DW_PLANES))  # the full (251, 129) plane
@@ -3178,7 +3312,7 @@ def check_proofs(smi):
     print("proofs kernels " + json.dumps(rows))
     step = {"K2_forward": 2 * SRU_LAUNCHES, "K2_backward": SRU_LAUNCHES,
             "K3": 3 * DW_LAUNCHES}
-    val = {"K1": SRU_LAUNCHES, "K3": DW_LAUNCHES}
+    val = SERVE_LAUNCHES
     cuda = torch.device("cuda")
     paths, out = {}, {"card": smi}
     with train_precision():
@@ -3226,7 +3360,8 @@ def check_config_zoo(smi):
     headline configs (RTFS-Net-4, 6, 12, CTCNet-16) at full width: serving
     at B = 128 and B = 1 in bfloat16, train steps at B = 4 and 16, each
     phase's launches exactly its calls times the config's per call (per
-    TDANet repeat: K1 8 and K3 10 a forward, K2 16 + 8 and K3 30 a step;
+    TDANet repeat: K1 8, K3 10 and each layout kernel 2 a forward, K2
+    16 + 8 and K3 30 a step;
     CTCNet none); then RTFS-Net-12 served at B = 1 (``check_serving``: its
     launches, float32 against the CPU within 5e-4·max|ref|, both dtypes
     timed). Returns the launches by path and the rows."""
@@ -3237,7 +3372,8 @@ def check_config_zoo(smi):
 
     cuda = torch.device("cuda")
     paths, rows = {}, []
-    forward = {"K1": 2 * sum(SRU_LAYERS.values()), "K3": sum(DW_PLANES.values())}
+    forward = {"K1": 2 * sum(SRU_LAYERS.values()), "K3": sum(DW_PLANES.values()),
+               "dual_path_norm_in": 2, "dual_path_out": 2}
     step = {"K2_forward": 2 * forward["K1"], "K2_backward": forward["K1"],
             "K3": 3 * forward["K3"]}
     for name, _ in bench_zoo.ZOO:
@@ -3269,7 +3405,7 @@ def check_config_zoo(smi):
 
 def check_sweep(smi):
     """Phase 25: ``bench_sweep.sweep`` over its default batches: each
-    batch's calls launch K1 32 and K3 40 each. Returns the launches."""
+    batch's calls launch ``SERVE_LAUNCHES`` each. Returns the launches."""
     import torch
 
     from rtfs_net_tpu_torch.scripts import bench_sweep
@@ -3280,7 +3416,7 @@ def check_sweep(smi):
     for row in rows:
         check_launch_rows(f"sweep B={row['B']}", {"serving": row["launches"]},
                           {"serving": row["calls"]},
-                          {"serving": {"K1": SRU_LAUNCHES, "K3": DW_LAUNCHES}})
+                          {"serving": SERVE_LAUNCHES})
     torch.cuda.empty_cache()
     print("sweep " + json.dumps({"card": smi, "rows": rows, "best_batch": best["B"]}))
     return launches
@@ -3290,7 +3426,8 @@ def check_stages(smi):
     """Phase 26: ``profile_serving.profile``, the stage split of the B=128
     bfloat16 serving forward: every stage finite in time, and the phase's
     launches those of 7 calls each of the full forward and the refinement
-    (K1 32, K3 40) and of one audio block (K1 8, K3 10), and of the B=1
+    (K1 32, K3 40, each layout kernel 8) and of one audio block (K1 8,
+    K3 10, each layout kernel 2), and of the B=1
     forward that reads the stages' shapes. Returns them."""
     import torch
 
@@ -3300,7 +3437,7 @@ def check_stages(smi):
     ms, shapes, repeats = profile_serving.profile(torch.device("cuda"))
     launches = launch_counts()
     calls = 1 + profile_serving.ITERS
-    block = {"K1": SRU_LAUNCHES // REPEATS, "K3": DW_LAUNCHES // REPEATS}
+    block = {k: n // REPEATS for k, n in SERVE_LAUNCHES.items()}
     # and the B=1 forward that reads the stages' shapes
     want = {k: (calls * (2 * REPEATS + 1) + REPEATS) * block.get(k, 0) for k in launches}
     if launches != want:
@@ -3377,6 +3514,7 @@ def main():
     print(f"build: {', '.join(sources)} and the native extension built and loaded in "
           f"{time.perf_counter() - t0:.3f} s")
     sru = check_sru_kernel()
+    dual_path = check_dual_path_kernels()
     dw = check_dw_conv_kernel()
     direction = check_sru_direction_kernel()
     model, video, requests, frame_requests = serving_setup()
@@ -3452,9 +3590,20 @@ def main():
                     "replaces": "rtfs_net_tpu/ops/pallas/sru_kernel.py:92",
                     "launches": direction_launches["K4"],
                     **{key: direction[key] for key in keys}, "library_ms": None})
+    # the SRU DualPathRNN's passes into K1's layout and out of it: no TPU
+    # kernel has their work (the JAX package's DualPathRNN lets XLA fuse its
+    # layout changes); the plain versions are the PyTorch compositions they
+    # replace on the port's inference route
+    for name in ("dual_path_norm_in", "dual_path_out"):
+        summary.append({"name": name, "route": "cuda",
+                        "source": "rtfs_net_tpu_torch/csrc/dual_path.cu", "replaces": None,
+                        "launches": launches[name], "shape": [BIG_BATCH, *DUAL_PATH_PLANE],
+                        "dtype": "bfloat16", **{key: dual_path[name][key] for key in keys},
+                        "library_ms": None})
     # each kernel's launches on every path that ran it, each path counted
     # from 0 just before it and read just after
-    for entry, count in zip(summary, ("K1", "K2_forward", "K2_backward", "K3", "K4")):
+    for entry, count in zip(summary, ("K1", "K2_forward", "K2_backward", "K3", "K4",
+                                      "dual_path_norm_in", "dual_path_out")):
         entry["launches_by_path"] = {path: counts[count] for path, counts in by_path.items()
                                      if counts[count]}
     print(smi)

@@ -45,11 +45,12 @@ KEYS = ("metric", "value", "unit", "vs_baseline", "inference_ms_per_utt",
 
 def launch_counts():
     """Every kernel wrapper's count of launches."""
-    from .ops.kernels import dw_conv, sru, sru_direction, sru_train
+    from .ops.kernels import dual_path, dw_conv, sru, sru_direction, sru_train
 
     return {"K1": sru.launches, "K2_forward": sru_train.forward_launches,
             "K2_backward": sru_train.backward_launches, "K3": dw_conv.launches,
-            "K4": sru_direction.launches}
+            "K4": sru_direction.launches, "dual_path_norm_in": dual_path.norm_in_launches,
+            "dual_path_out": dual_path.out_launches}
 
 
 def launched(fn):

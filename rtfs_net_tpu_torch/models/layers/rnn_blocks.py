@@ -18,11 +18,16 @@ from torch import nn
 from ...ops import activations
 from ...ops.conv import ConvTranspose, Linear, unfold_1d
 from ...ops.dropout import Dropout
-from ...ops.normalizations import LayerNorm
-from ...ops.rnn import GRU, LSTM, get_rnn
+from ...ops.kernels.dual_path import dual_path_norm_in, dual_path_out
+from ...ops.normalizations import LayerNorm, LayerNormalization4D
+from ...ops.rnn import GRU, LSTM, SRU, get_rnn
 from ...utils.profiling import span
 from .attention_blocks import MultiHeadSelfAttention
 from .conv_blocks import ConvActNorm, FeedForwardNetwork, make_norm
+
+# DualPathRNN calls that took the sequence-layout route since the last reset
+# (set it to 0 to reset)
+seq_layout_calls = 0
 
 
 class RNNProjection(nn.Module):
@@ -53,7 +58,20 @@ class DualPathRNN(nn.Module):
     pre-unfold sequence (``window=(k, s)``); the SRU never builds the
     windows. ``Attn`` attends over the (L, B·F, C·k) windows with the
     positional encoding indexed by dim 1 (a reference quirk, kept), and
-    ``apply_ffn`` adds a FeedForwardNetwork on C·k channels after it."""
+    ``apply_ffn`` adds a FeedForwardNetwork on C·k channels after it.
+
+    An SRU DualPathRNN on the ``"scan"`` route at stride 1 with a
+    LayerNormalization4D over C runs, when autograd is not recording, in
+    K1's (S, C, rows) layout from the norm to the residual (S the recurrent
+    axis, rows the other axis times B, b-major): one kernel normalises x
+    into that layout (``ops/kernels/dual_path.py``), ``SRU.forward_windows``
+    projects its overlapping windows with one batched matmul and runs the
+    layers, the last writing into the middle of a zero-padded buffer, the
+    transposed conv is one batched matmul over that buffer's overlapping
+    windows with the taps reversed, and a second kernel adds the bias and
+    the residual on the way back to (B, C, T, F). Stride 1 pads nothing, so
+    x itself is the residual. Every other call, training among them, takes
+    the route below it."""
 
     def __init__(self, in_chan: int, hid_chan: int, dim: int, kernel_size: int = 8,
                  stride: int = 1, rnn_type: str = "LSTM", num_layers: int = 1,
@@ -74,8 +92,37 @@ class DualPathRNN(nn.Module):
                     if apply_ffn else None)
         self.linear = ConvTranspose(rnn_out, in_chan, kernel_size, ndim=1, stride=stride)
 
+    def takes_seq_layout(self, x) -> bool:
+        """Whether this call of ``forward`` takes the sequence-layout route."""
+        return (isinstance(self.rnn, SRU) and self.rnn.route() == "scan"
+                and self.stride == 1 and self.ffn is None
+                and isinstance(self.norm, LayerNormalization4D)
+                and x.dtype in (torch.float32, torch.bfloat16)
+                and not (torch.is_grad_enabled()
+                         and (x.requires_grad or any(p.requires_grad for p in self.parameters()))))
+
+    def _forward_seq_layout(self, x):
+        global seq_layout_calls
+        seq_dim, k = self.dim - 1, self.kernel_size
+        x = x.contiguous()
+        C = x.shape[1]
+        y = dual_path_norm_in(x, self.norm.gamma.view(C).float(),
+                              self.norm.beta.view(C).float(), seq_dim=seq_dim,
+                              eps=self.norm.eps)                      # (S, C, rows)
+        S, _, rows = y.shape
+        h = self.rnn.forward_windows(y, k, pad=k - 1)               # (L + 2(k-1), O, rows)
+        O = h.shape[1]
+        # ConvTranspose1d at stride 1: out[s] = sum over taps j of w[:, :, j]^T h[s - j],
+        # i.e. the window h_padded[s:s + k] against the taps reversed, columns j'*O + o
+        w = self.linear.weight.permute(1, 2, 0).flip(1).reshape(C, k * O).to(x.dtype)
+        z = torch.matmul(w, h.as_strided((S, k * O, rows), (O * rows, rows, 1)))
+        seq_layout_calls += 1
+        return dual_path_out(z, self.linear.bias.float(), x, seq_dim=seq_dim)
+
     def forward(self, x):
         with span("rtfs.refine.rnn"):
+            if self.takes_seq_layout(x):
+                return self._forward_seq_layout(x)
             if self.dim == 4:
                 x = x.transpose(-2, -1)
             B, C, old_T, old_F = x.shape

@@ -6,6 +6,10 @@ arguments and layout: u (L, k·O, rows) with chunk-major columns
 ``c*O + d*H + h``; skip (L, O, rows) when k == 3 (unused when k == 4,
 where u's 4th chunk is the highway); v, b the layer's (2·O,) gate vectors.
 Returns (L, O, rows) in u's dtype; the carry and the math are float32.
+With ``pad`` > 0 the output is (L + 2·pad, O, rows): the layer's steps in
+the middle and ``pad`` zero steps at each end, for a caller whose next
+step reads zero-padded windows of the output (an overlap-add). The end
+steps are zeroed inside the op, so its device time includes that fill.
 
 The kernel is the registered op ``rtfs::sru_stack_layer``
 (``registry.py``): ``sru_stack_layer_cuda`` launches it,
@@ -105,7 +109,7 @@ def _check(u, skip, v, b, H: int, k: int, ndir: int):
     return L, O, rows
 
 
-def sru_stack_layer(u, skip, v, b, *, H: int, k: int, ndir: int):
+def sru_stack_layer(u, skip, v, b, *, H: int, k: int, ndir: int, pad: int = 0):
     """The registered op ``rtfs::sru_stack_layer``: CUDA tensors launch the
     kernel, CPU tensors take the plain version. Inference only: it raises
     when autograd would need its backward (the differentiable layer is
@@ -115,15 +119,22 @@ def sru_stack_layer(u, skip, v, b, *, H: int, k: int, ndir: int):
         raise RuntimeError("sru_stack_layer has no backward; a grad-enabled call "
                            "goes through sru_train.sru_layer_train")
     _check(u, skip, v, b, H, k, ndir)
-    return torch.ops.rtfs.sru_stack_layer(u, skip, v, b, H, k, ndir)
+    if pad < 0:
+        raise ValueError(f"pad must be >= 0, got {pad}")
+    return torch.ops.rtfs.sru_stack_layer(u, skip, v, b, H, k, ndir, pad)
 
 
-def sru_stack_layer_cuda(u, skip, v, b, H: int, k: int, ndir: int):
-    """The op's CUDA implementation: one launch of the kernel."""
+def sru_stack_layer_cuda(u, skip, v, b, H: int, k: int, ndir: int, pad: int = 0):
+    """The op's CUDA implementation: one launch of the kernel, into the
+    middle of the output when ``pad`` > 0, whose end steps are zeroed."""
     global launches
     fn = _fn()
     L, _, rows = u.shape
-    out = torch.empty((L, H * ndir, rows), dtype=u.dtype, device=u.device)
+    padded = torch.empty((L + 2 * pad, H * ndir, rows), dtype=u.dtype, device=u.device)
+    if pad:
+        padded[:pad].zero_()
+        padded[L + pad:].zero_()
+    out = padded[pad:L + pad]
     v = v.float().contiguous()
     b = b.float().contiguous()
     skip = skip if k == 3 else None
@@ -137,15 +148,16 @@ def sru_stack_layer_cuda(u, skip, v, b, H: int, k: int, ndir: int):
     if err != 0:
         raise RuntimeError(f"sru_stack_layer kernel launch failed: CUDA error {err}")
     launches += 1
-    return out
+    return padded
 
 
-def _sru_stack_layer_cpu(u, skip, v, b, H, k, ndir):
-    return sru_stack_layer_ref(u, skip, v, b, H=H, k=k, ndir=ndir)
+def _sru_stack_layer_cpu(u, skip, v, b, H, k, ndir, pad=0):
+    out = sru_stack_layer_ref(u, skip, v, b, H=H, k=k, ndir=ndir)
+    return torch.nn.functional.pad(out, (0, 0, 0, 0, pad, pad)) if pad else out
 
 
-def _sru_stack_layer_fake(u, skip, v, b, H, k, ndir):
-    return u.new_empty((u.shape[0], H * ndir, u.shape[2]))
+def _sru_stack_layer_fake(u, skip, v, b, H, k, ndir, pad=0):
+    return u.new_empty((u.shape[0] + 2 * pad, H * ndir, u.shape[2]))
 
 
 def sru_stack_layer_ref(u, skip, v, b, *, H: int, k: int, ndir: int):
@@ -172,5 +184,5 @@ def sru_stack_layer_ref(u, skip, v, b, *, H: int, k: int, ndir: int):
 
 
 registry.define_op("sru_stack_layer(Tensor u, Tensor? skip, Tensor v, Tensor b, int H, int k, "
-                   "int ndir) -> Tensor", sru_stack_layer_cuda, _sru_stack_layer_cpu,
+                   "int ndir, int pad=0) -> Tensor", sru_stack_layer_cuda, _sru_stack_layer_cpu,
                    _sru_stack_layer_fake)

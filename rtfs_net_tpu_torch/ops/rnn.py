@@ -14,7 +14,9 @@ Two routes, named as in the JAX package (``SRU(backend=...)``, default
   layer kernels take (``ops/kernels/sru.py`` for inference,
   ``sru_train.py`` when autograd records): the projections emit
   (L, k·O, rows) directly and each layer's (L, O, rows) output feeds the
-  next projection as is.
+  next projection as is. ``SRU.forward_windows`` is its inference entry
+  for an input already in that orientation, (S, C, rows), which the SRU
+  DualPathRNN gives it.
 * ``"pallas"``: the per-direction route on the (L, rows, H) layout. Each
   layer's projection is a matmul into (L, rows, k, O), each direction one
   call of ``ops/kernels/sru_direction.py`` on slices of it, the outputs
@@ -95,11 +97,14 @@ class SRUCell(nn.Module):
             self.weight_c.zero_()
             self.bias.zero_()
 
-    def projection(self, dtype) -> torch.Tensor:
-        """(k·O, d_in) with rows ``c*O + d*H + h`` (the kernel's u order)."""
+    def projection(self, dtype, taps: int = 1) -> torch.Tensor:
+        """(k·O, d_in) with rows ``c*O + d*H + h`` (the kernel's u order).
+        With ``taps`` > 1 the input is C·taps unfolded channels, whose weight
+        rows are ``c*taps + tap`` (the ``unfold_1d`` order), and the columns
+        come out tap-major, ``tap*C + c``."""
         d_in = self.weight.shape[0]
-        w = self.weight.view(d_in, self.ndir, self.k, self.hidden_size)
-        return w.permute(2, 1, 3, 0).reshape(-1, d_in).to(dtype)
+        w = self.weight.view(d_in // taps, taps, self.ndir, self.k, self.hidden_size)
+        return w.permute(3, 2, 4, 1, 0).reshape(-1, d_in).to(dtype)
 
     def recur(self, u, skip):
         """The layer's recurrence: the training kernel K2 when autograd
@@ -142,6 +147,13 @@ class SRU(nn.Module):
             SRUCell(input_size if l == 0 else out, hidden_size, bidirectional)
             for l in range(num_layers))
 
+    def route(self) -> str:
+        """The backend this call takes: its own, else ``DEFAULT_SRU_BACKEND``."""
+        backend = self.backend or DEFAULT_SRU_BACKEND
+        if backend not in _BACKENDS:
+            raise ValueError(f"unknown SRU backend {backend!r}: one of {_BACKENDS}")
+        return backend
+
     def forward(self, x, window=None):
         """x: (L, rows, input_size) -> (L, rows, O).
 
@@ -149,10 +161,7 @@ class SRU(nn.Module):
         C·k == input_size: layer 0's projection over the unfolded windows is
         one k-wide stride-s conv, so the k× larger unfolded tensor is built
         only when layer 0 needs it as its highway input (k == 3)."""
-        backend = self.backend or DEFAULT_SRU_BACKEND
-        if backend not in _BACKENDS:
-            raise ValueError(f"unknown SRU backend {backend!r}: one of {_BACKENDS}")
-        if backend == "pallas":
+        if self.route() == "pallas":
             return self._forward_directions(x, window)
         cell = self.rnn_lst[0]
         w = cell.projection(x.dtype)
@@ -172,6 +181,35 @@ class SRU(nn.Module):
             u = torch.matmul(cell.projection(h.dtype), h)
             h = cell.recur(u, h if cell.k == 3 else None)
         return h.permute(0, 2, 1)
+
+    def forward_windows(self, y, kernel_size: int, pad: int = 0):
+        """The ``"scan"`` route's inference on K1's layout from the start:
+        y (S, C, rows) is the sequence whose stride-1 windows of
+        ``kernel_size`` steps (C·kernel_size == input_size) are layer 0's
+        input. Returns (L + 2·pad, O, rows), L = S - kernel_size + 1, with
+        ``pad`` zero steps at each end (the last layer's K1 writes into the
+        middle). A window at l is y[l:l + kernel_size], one contiguous
+        (kernel_size·C, rows) matrix at offset l·C·rows, so layer 0's
+        projection is one batched matmul over overlapping views of y with the
+        weight's columns tap-major: u comes out (L, k·O, rows) with no copy
+        of y. Autograd must not be recording (K1 has no backward)."""
+        S, C, rows = y.shape
+        L = S - kernel_size + 1
+        cell = self.rnn_lst[0]
+        windows = y.as_strided((L, kernel_size * C, rows), (C * rows, rows, 1))
+        u = torch.matmul(cell.projection(y.dtype, kernel_size), windows)
+        skip = None
+        if cell.k == 3:  # the unfolded windows themselves, rows c*k + tap
+            skip = y.as_strided((L, C, kernel_size, rows), (C * rows, rows, C * rows, 1))
+            skip = skip.reshape(L, C * kernel_size, rows)
+        last = len(self.rnn_lst) - 1
+        for i, cell in enumerate(self.rnn_lst):
+            if i:
+                u = torch.matmul(cell.projection(h.dtype), h)
+                skip = h if cell.k == 3 else None
+            h = sru_stack_layer(u, skip, cell.weight_c, cell.bias, H=cell.hidden_size,
+                                k=cell.k, ndir=cell.ndir, pad=pad if i == last else 0)
+        return h
 
     def _forward_directions(self, x, window):
         """The ``"pallas"`` route: (L, rows, ·) throughout."""

@@ -13,8 +13,9 @@ branch, float32, traced on the CPU:
   ``tests/test_torch_avnet.py``); its shapes are pinned; it serves
   n = 1, 2, 3, 5 by padding and chunking; a one-bucket audio-only file
   round-trips through ``load_serving``;
-* the graph holds a ``rtfs::sru_stack_layer`` node per SRU layer and no
-  training-kernel node; with the depthwise convs sent to the stencil op on
+* the graph holds a ``rtfs::sru_stack_layer`` node per SRU layer, a
+  ``rtfs::dual_path_norm_in`` and a ``rtfs::dual_path_out`` node per
+  DualPathRNN and no training-kernel node; with the depthwise convs sent to the stencil op on
   the CPU too, ``rtfs::dw_conv2d_same`` nodes that run the plain version;
 * each loader refuses the other package's files; loading imports no model
   code; the CLI exports the audio-only convention end to end.
@@ -51,6 +52,8 @@ for _layer in ("layer_1", "layer_2"):
     TINY["audio_params"]["layers"][_layer]["num_layers"] = 1
 EMB = TINY["pretrained_vout_chan"]
 SRU_LAYERS = 2  # 2 DualPathRNNs x 1 SRU layer x 1 repeat
+# each DualPathRNN: one pass into K1's layout and one out, around its SRU layers
+RNN_OPS = {"sru_stack_layer": SRU_LAYERS, "dual_path_norm_in": 2, "dual_path_out": 2}
 AUDIO_ONLY = {**TINY, "video_params": {}, "fusion_params": {}, "video_bn_params": {},
               "pretrained_vout_chan": -1}
 
@@ -151,8 +154,8 @@ def test_export_pins_shapes(cli_artifact):
 
 def test_graph_holds_the_inference_kernel(cli_artifact, audio_only):
     for b in cli_artifact.batch_sizes:
-        assert E.op_counts(cli_artifact.program(b)) == {"sru_stack_layer": SRU_LAYERS}
-    assert E.op_counts(audio_only[1]) == {"sru_stack_layer": SRU_LAYERS}
+        assert E.op_counts(cli_artifact.program(b)) == RNN_OPS
+    assert E.op_counts(audio_only[1]) == RNN_OPS
 
 
 def test_bucketed_artifact_serves_any_batch(tiny, cli_artifact):
@@ -179,8 +182,7 @@ def test_stencil_op_in_the_graph(audio_only, monkeypatch, tmp_path):
     monkeypatch.setattr(conv, "DW_KERNEL_DEVICES", ("cuda", "cpu"))
     program = E.export_serving(model, 1, L, compute_dtype=torch.float32, device="cpu")
     counts = E.op_counts(program)
-    assert counts["sru_stack_layer"] == SRU_LAYERS and counts["dw_conv2d_same"] > 0
-    assert set(counts) == {"sru_stack_layer", "dw_conv2d_same"}
+    assert counts.pop("dw_conv2d_same") > 0 and counts == RNN_OPS
     path = str(tmp_path / "dw.rtfsx")
     E.save_serving(path, program, 1, L, compute_dtype="float32")
     mix, _ = _inputs(6, 1)

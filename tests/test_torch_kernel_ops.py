@@ -1,9 +1,10 @@
 """The kernels as registered operators (``rtfs_net_tpu_torch/ops/kernels``):
-``torch.library.opcheck`` on each of the five ``rtfs::`` ops with CPU
+``torch.library.opcheck`` on each of the seven ``rtfs::`` ops with CPU
 inputs, where the dispatcher runs the plain version. It checks the schema,
 the fake (shape-only) implementation against the real outputs' metadata,
 the autograd registration and tracing through AOT dispatch. Small shapes:
-k = 3 and 4, skip None and given, uneven pads, operands sliced out of a
+k = 3 and 4, skip None and given, K1's zero end steps, both sequence
+axes of the DualPathRNN's passes, uneven pads, operands sliced out of a
 larger tensor. On the card ``chip_smoke.py`` runs the same check against
 the CUDA kernels."""
 import numpy as np
@@ -42,6 +43,15 @@ def _cases():
     for kernel, pads in (((3, 3), [1, 1, 1, 1]), ((4, 4), [1, 2, 2, 1]), ((2, 3), [0, 1, 2, 0])):
         x, w = _t(rng, 2, 3, 7, 6), _t(rng, 3, 1, *kernel)
         cases.append((f"dw_conv2d_same-{kernel[0]}x{kernel[1]}", "dw_conv2d_same", (x, w, pads)))
+    u, _, v, b = _sru_args(rng, 4, 2, False)
+    cases.append(("sru_stack_layer-k4-ndir2-pad2", "sru_stack_layer", (u, None, v, b, H, 4, 2, 2)))
+    for seq_dim in (2, 3):
+        x, gamma, beta = _t(rng, 2, 3, 7, 6), _t(rng, 3), _t(rng, 3)
+        cases.append((f"dual_path_norm_in-seq{seq_dim}", "dual_path_norm_in",
+                      (x, gamma, beta, seq_dim, 1e-5)))
+        S, rows = (7, 12) if seq_dim == 2 else (6, 14)
+        cases.append((f"dual_path_out-seq{seq_dim}", "dual_path_out",
+                      (_t(rng, S, 3, rows), _t(rng, 3), x, seq_dim)))
     proj = _t(rng, L, ROWS, 4, 2 * H)  # slices of one projection, as the "pallas" route has them
     gates = [_t(rng, H) for _ in range(4)]
     for reverse in (False, True):
@@ -59,7 +69,7 @@ def test_opcheck(op, args):
 
 
 def test_every_op_is_registered_for_each_device():
-    assert len(kernels.OPS) == 5 and {c[1] for c in CASES} == set(kernels.OPS)
+    assert len(kernels.OPS) == 7 and {c[1] for c in CASES} == set(kernels.OPS)
     for op in kernels.OPS:
         for key in ("CUDA", "CPU", "Meta"):
             assert torch._C._dispatch_has_kernel_for_dispatch_key(f"rtfs::{op}", key), (op, key)
@@ -80,3 +90,8 @@ def test_wrappers_call_the_ops():
     pads = ((1, 2), (2, 1))
     assert torch.equal(kernels.dw_conv.dw_conv2d_same(x, w, pads),
                        kernels.dw_conv.dw_conv2d_same_ref(x, w, pads))
+    gamma, beta = _t(rng, 3), _t(rng, 3)
+    y = kernels.dual_path.dual_path_norm_in(x, gamma, beta, seq_dim=3, eps=1e-5)
+    assert torch.equal(y, kernels.dual_path.dual_path_norm_in_ref(x, gamma, beta, 3, 1e-5))
+    assert torch.equal(kernels.dual_path.dual_path_out(y, beta, x, seq_dim=3),
+                       kernels.dual_path.dual_path_out_ref(y, beta, x, 3))

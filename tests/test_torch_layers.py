@@ -7,8 +7,11 @@ differ only by summation order; 1e-4·max|out| for whole TDANet blocks,
 where those differences pass through a few normalizations and the SRU
 recurrences.
 """
+import functools
+
 import numpy as np
 import pytest
+import torch
 
 from rtfs_net_tpu.models.layers import attention_blocks as jatt
 from rtfs_net_tpu.models.layers import fusion_cells as jfus
@@ -18,7 +21,8 @@ from rtfs_net_tpu_torch.models.layers import attention_blocks, fusion_cells, rnn
 from rtfs_net_tpu_torch.models.separators import tdanet
 from rtfs_net_tpu_torch.utils import convert
 
-from _torch_port import jax_apply, jax_init, load, one_torch_thread, port_apply  # noqa: F401
+from _torch_port import (jax_apply, jax_init, jax_random, load, one_torch_thread,  # noqa: F401
+                         port_apply)
 
 TOL = dict(atol=2e-5, rtol=2e-5)
 
@@ -34,13 +38,59 @@ def _check(jm, pm, mapper, rng, inputs, *mapper_args, tol=TOL):
     np.testing.assert_allclose(got, want, **tol)
 
 
-@pytest.mark.parametrize("dim,stride", [(4, 1), (3, 1), (3, 2)])
-def test_dual_path_rnn(rng, dim, stride):
-    kw = dict(in_chan=8, hid_chan=4, dim=dim, kernel_size=4, stride=stride,
+@functools.lru_cache(maxsize=None)
+def _dual_path_rnn_case(dim, stride, in_chan, hid_chan):
+    """(kwargs, input, JAX variables, JAX output) of one configuration, the
+    variables drawn from their ``eval_shape`` shapes (``jax_random``: no init
+    compile); kept, so that its bfloat16 case compiles no JAX of its own."""
+    rng = np.random.default_rng(0)
+    kw = dict(in_chan=in_chan, hid_chan=hid_chan, dim=dim, kernel_size=4, stride=stride,
               rnn_type="SRU", num_layers=2, bidirectional=True)
-    x = rng.standard_normal((2, 8, 11, 9)).astype(np.float32)
-    _check(jrnn.DualPathRNN(**kw), rnn_blocks.DualPathRNN(**kw), convert.dual_path_rnn,
-           rng, [x], 4, True)
+    x = rng.standard_normal((2, in_chan, 11, 9)).astype(np.float32)
+    jm = jrnn.DualPathRNN(**kw)
+    v = jax_random(jm, rng, x)
+    return kw, x, v, jax_apply(jm, v, x)
+
+
+@pytest.mark.parametrize("dim,stride,dtype,in_chan,hid_chan", [
+    pytest.param(4, 1, "float32", 8, 4, id="4-1"),
+    pytest.param(3, 1, "float32", 8, 4, id="3-1"),
+    pytest.param(3, 2, "float32", 8, 4, id="3-2"),
+    pytest.param(4, 1, "bfloat16", 8, 4, id="4-1-bfloat16"),
+    pytest.param(3, 1, "bfloat16", 8, 4, id="3-1-bfloat16"),
+    pytest.param(3, 1, "float32", 4, 8, id="3-1-first-layer-k3"),
+    pytest.param(3, 1, "bfloat16", 4, 8, id="3-1-first-layer-k3-bfloat16"),
+    pytest.param(4, 1, "float32", 4, 8, id="4-1-first-layer-k3"),
+    pytest.param(4, 1, "bfloat16", 4, 8, id="4-1-first-layer-k3-bfloat16"),
+])
+def test_dual_path_rnn(dim, stride, dtype, in_chan, hid_chan):
+    """Two SRU layers: layer 0 has k == 4 chunks (in_chan·kernel_size !=
+    2·hid_chan), or k == 3 with the unfolded windows as its highway (==);
+    layer 1 has k == 3. Without gradients, so each stride-1 call takes the
+    sequence-layout route (the counter says so) and the stride-2 one the
+    route of ``SRU.forward``. bfloat16 is held to the float32 JAX output
+    within 2^-5·max|out|, a few roundings of a bfloat16 value. The same
+    module called with gradients on takes the autograd route (the route of
+    training), held to the call without them on the same weights: float32
+    within 1e-5·max|out| (the routes sum in other orders), bfloat16 within
+    2^-6·max|out| (they round at other places)."""
+    kw, x, v, want = _dual_path_rnn_case(dim, stride, in_chan, hid_chan)
+    pm = load(rnn_blocks.DualPathRNN(**kw), convert.dual_path_rnn, v, hid_chan, True)
+    xt = torch.from_numpy(x).to(getattr(torch, dtype))
+    before = rnn_blocks.seq_layout_calls
+    with torch.no_grad():
+        out = pm(xt)
+    assert rnn_blocks.seq_layout_calls - before == (stride == 1)
+    got = out.float().numpy()
+    assert got.shape == want.shape
+    tol = TOL if dtype == "float32" else dict(atol=2 ** -5 * np.abs(want).max(), rtol=0)
+    np.testing.assert_allclose(got, want, **tol)
+    assert not pm.takes_seq_layout(xt)  # gradients on, the parameters require them
+    autograd = pm(xt).detach()
+    assert out.dtype == autograd.dtype == xt.dtype and (stride > 1 or out.is_contiguous())
+    scale = autograd.float().abs().max().item()
+    atol = (1e-5 if dtype == "float32" else 2 ** -6) * scale
+    torch.testing.assert_close(out.float(), autograd.float(), atol=atol, rtol=0)
 
 
 @pytest.mark.parametrize("dim", [3, 4])

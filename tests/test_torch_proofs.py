@@ -192,4 +192,5 @@ def test_av_proof_run_in_bfloat16_moves_every_video_parameter():
                              steps=2, arrays=av_train_proof.av_batch(B, L, 4, 44))
     assert len(out["losses"]) == 2 and all(np.isfinite(out["losses"]))
     assert out["video_moved"] == out["video_params"] > 0
-    assert set(out["launches"]) == {"K1", "K2_forward", "K2_backward", "K3", "K4"}
+    assert set(out["launches"]) == {"K1", "K2_forward", "K2_backward", "K3", "K4",
+                                    "dual_path_norm_in", "dual_path_out"}
