@@ -30,8 +30,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from . import inputs, weights
-from .reference import model as ref
+from . import inputs, spec, weights
 from .reference import precision
 from .reference.train import forward, train_steps
 
@@ -52,11 +51,14 @@ def exact_float32():
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
-def reference_models(conf: Dict, seed: int, device):
-    """The reference's AVNet and video model with the seed's weights."""
+def reference_models(reference: str, conf: Dict, seed: int, device):
+    """The AVNet and video model of ``conf`` in the plain reference module
+    at ``reference``, with the seed's weights: the state dicts that the
+    program is given too."""
+    module = spec.reference(reference)
     with torch.device("meta"):
-        model, video = ref.build(conf)
-    ms, vs = weights.make_state(model, video, inputs.torch_seed(seed, 0), device)
+        model, video = module.build(conf)
+    ms, vs = weights.make_state(model, video, inputs.torch_seed(seed, 0), device, module.INIT)
     model.load_state_dict(ms, assign=True)
     video.load_state_dict(vs, assign=True)
     model.requires_grad_(True)
@@ -97,7 +99,7 @@ def serve_numbers(cell, seed: int, device, pool: inputs.Pool,
     t = cell.traffic
     indices = _sample(list(outputs) if outputs is not None else range(t["check_calls"] * 4),
                       t["check_calls"], seed)
-    model, video = reference_models(cell.conf, seed, device)
+    model, video = reference_models(cell.reference, cell.conf, seed, device)
     requests = [(mix.copy(), frames) for mix, _, frames in map(pool.call, indices)]
     with exact_float32():
         want = reference_separate(model, video, requests, t["check_block"], device)
@@ -151,7 +153,7 @@ def train_numbers(cell, seed: int, device, pool: inputs.Pool, readings: Optional
     steps = t["check_steps"]
 
     def run(rows=None):
-        model, video = reference_models(cell.conf, seed, device)
+        model, video = reference_models(cell.reference, cell.conf, seed, device)
         gen = torch.Generator(device=device).manual_seed(inputs.torch_seed(seed, 2))
         batches = [tuple(torch.tensor(a[:rows], device=device) for a in pool.call(i))
                    for i in range(steps)]

@@ -829,6 +829,16 @@ class FRCNNVideoModel(nn.Module):
         return self.trunk(y).view(B, T, -1).transpose(1, 2)
 
 
+# The weight rules of ``weights.py``: a tensor that a module of one of these
+# classes holds itself, by its name, is drawn uniform on centre ± half-width;
+# norm scales about 1, their shifts and running means about 0, PReLU slopes
+# about 0.25, the SRU's gate vectors about 0.
+_NORM = {"weight": (1.0, 0.1), "gamma": (1.0, 0.1), "bias": (0.0, 0.1), "beta": (0.0, 0.1),
+         "running_mean": (0.0, 0.1), "running_var": (1.0, 0.25)}
+INIT = {nn.GroupNorm: _NORM, LayerNormalization4D: _NORM, BatchNorm: _NORM, LayerNorm: _NORM,
+        PReLU: {"weight": (0.25, 0.05)}, SRUCell: {"weight_c": (0.0, 0.1), "bias": (0.0, 0.1)}}
+
+
 def build(conf):
     """(AVNet, video model) of a YAML config, parameters uninitialised."""
     return AVNet(**conf["audionet"]), FRCNNVideoModel(**conf["videonet"])

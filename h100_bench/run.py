@@ -23,8 +23,7 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
-from . import check, drive, inputs, program, spec, weights, work
-from .reference import model as ref
+from . import check, drive, inputs, program, spec, work
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "rtfs_net_tpu")
 
@@ -40,7 +39,8 @@ class Run:
 
     @property
     def flops_per_utterance(self) -> float:
-        return work.reference_flops(json.dumps(self.cell.conf, sort_keys=True),
+        return work.reference_flops(self.cell.reference,
+                                    json.dumps(self.cell.conf, sort_keys=True),
                                     json.dumps(self.traffic, sort_keys=True))
 
 
@@ -64,11 +64,10 @@ def device_lines() -> Dict:
 def run_cell(cell, seed: int, seconds: float, traced: bool, device, started: float) -> Dict:
     """Set-up, window, optional traced stretch, check; returns the result
     and the earlier lines' numbers."""
-    with torch.device("meta"):
-        template = ref.build(cell.conf)
-    model_state, video_state = weights.make_state(*template, inputs.torch_seed(seed, 0), device)
-    model, video = program.build(cell.conf, device, model_state, video_state)
-    del model_state, video_state, template
+    ref_model, ref_video = check.reference_models(cell.reference, cell.conf, seed, device)
+    model, video = program.build(cell.conf, device, ref_model.state_dict(),
+                                 ref_video.state_dict())
+    del ref_model, ref_video
     pool = inputs.Pool(cell.traffic, seed)
     driver = drive.make(cell, seed, device, model, video, pool)
     readings = None

@@ -1,5 +1,6 @@
 """What a cell is, found by name: its entry in ``BENCHMARK.json``, the
-configuration file the entry names, the traffic file
+configuration file the entry names, the configuration's plain reference
+(named by ``reference/<config>.json``), the traffic file
 ``traffic/<traffic>.json``, the metrics that the cell reports (each read by
 ``metrics/<name>.py``, or by ``metrics/<stem>.py`` for a name
 ``<stem>.<suffix>``) and its correctness limits ``limits/<workload>.json``."""
@@ -27,11 +28,27 @@ class Cell:
     end_to_end: List[Dict]
     per_layer: List[Dict]
     limits: Dict
+    reference: str  # the plain reference module's path, from the repository's root
 
 
-def load_benchmark(path: Path = ROOT / "BENCHMARK.json") -> Dict:
-    with open(path) as f:
+def load_benchmark() -> Dict:
+    with open(ROOT / "BENCHMARK.json") as f:
         return json.load(f)
+
+
+def reference_files(config: str) -> Dict[str, str]:
+    """``reference/<config>.json``: the paths, from the repository's root,
+    of the configuration's plain reference module (``reference``), of the
+    port's YAML that its file copies (``published``) and of the model at
+    tiny widths for the CPU tests (``tiny``)."""
+    with open(HERE / "reference" / f"{config}.json") as f:
+        return json.load(f)
+
+
+def reference(path: str):
+    """The plain reference module at ``path``, imported by its dotted name,
+    so that its classes exist once however many callers resolve it."""
+    return importlib.import_module(path.removesuffix(".py").replace("/", "."))
 
 
 def _reports(metric: Dict, cell: str) -> bool:
@@ -54,7 +71,8 @@ def cell(name: str, bench: Dict = None) -> Cell:
     moved = {m["name"] for m in e2e}
     per_layer = [m for m in bench["per_layer"]
                  if m["moves"] in moved and _reports(m, name)]
-    return Cell(name, entry["config"], conf, entry["traffic"], traffic, e2e, per_layer, limits)
+    return Cell(name, entry["config"], conf, entry["traffic"], traffic, e2e, per_layer, limits,
+                reference_files(entry["config"])["reference"])
 
 
 def reader(metric: str):

@@ -33,6 +33,14 @@ def test_reference_imports_nothing_of_the_program(path):
     assert "rtfs_net_tpu" not in source.replace("rtfs_net_tpu_torch", "")
 
 
+@pytest.mark.parametrize("config", [c["name"] for c in spec.load_benchmark()["configs"]])
+def test_every_configuration_names_a_reference_the_scan_covers(config):
+    """A committed configuration's reference module lies in ``reference/``,
+    so the two tests above read it."""
+    path = spec.ROOT / spec.reference_files(config)["reference"]
+    assert path in FILES and path.parent == spec.HERE / "reference"
+
+
 def test_forbidden_modules_compares_whole_top_level_names(monkeypatch):
     import sys
     import types

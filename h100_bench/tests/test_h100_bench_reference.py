@@ -8,16 +8,20 @@ import torch
 import yaml
 
 from h100_bench import check, program, run, spec
-from h100_bench.reference import model as ref
 
-from _tiny import tiny_cell, tiny_train_cell
+from _tiny import tiny_conf, tiny_train_cell
+
+CONFIGS = spec.load_benchmark()["configs"]
 
 
-@pytest.mark.parametrize("name", ["tiny_rtfs", "tiny_ctcnet"])
-def test_reference_separates_as_the_port(name):
+@pytest.mark.parametrize("config", CONFIGS, ids=lambda c: c["name"])
+def test_reference_separates_as_the_port(config):
+    """Each configuration's reference module, at the tiny widths its
+    reference file names."""
     torch.manual_seed(0)
-    conf = yaml.safe_load((spec.HERE / "tests" / f"{name}.yaml").read_text())
-    model, video = check.reference_models(conf, 5, "cpu")
+    conf = tiny_conf(config["name"])
+    model, video = check.reference_models(spec.reference_files(config["name"])["reference"],
+                                          conf, 5, "cpu")
     pm, pv = program.build(conf, "cpu", model.state_dict(), video.state_dict())
     rng = np.random.default_rng(0)
     requests = [(rng.standard_normal((2, 4000)).astype(np.float32) * 0.1,
@@ -29,11 +33,12 @@ def test_reference_separates_as_the_port(name):
         np.testing.assert_allclose(got[:, 0], w, atol=2e-5 * np.abs(w).max())
 
 
-@pytest.mark.parametrize("config", ["rtfsnet4-lrs2", "ctcnet16-lrs2"])
+@pytest.mark.parametrize("config", CONFIGS, ids=lambda c: c["name"])
 def test_state_dicts_match_at_published_widths(config):
-    conf = yaml.safe_load((spec.HERE / "configs" / f"{config}.yaml").read_text())
+    conf = yaml.safe_load((spec.ROOT / config["file"]).read_text())
+    reference = spec.reference(spec.reference_files(config["name"])["reference"])
     with torch.device("meta"):
-        model, video = ref.build(conf)
+        model, video = reference.build(conf)
     from rtfs_net_tpu_torch.models import build_model, build_video_model
 
     for ours, theirs in ((model, build_model(conf, device="cpu")),

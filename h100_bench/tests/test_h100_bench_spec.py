@@ -74,14 +74,14 @@ def test_cell_resolves_to_its_files(workload):
 
 @pytest.mark.parametrize("config", BENCH["configs"], ids=lambda c: c["name"])
 def test_config_file_is_the_published_config(config):
-    """The file as run is the port's shipped YAML of that model, with
-    nothing reduced."""
+    """The file as run is the port's shipped YAML of that model, the one
+    its reference file names, with nothing reduced."""
     path = spec.ROOT / config["file"]
     assert path.resolve().is_relative_to((spec.ROOT / BENCH["paths"][0]).resolve())
-    shipped = {"rtfsnet4-lrs2": "lrs2_RTFSNet_4_layer.yaml",
-               "ctcnet16-lrs2": "lrs2_CTCNet_16_layer.yaml"}[config["name"]]
+    shipped = spec.ROOT / spec.reference_files(config["name"])["published"]
+    assert shipped.resolve().parent == (spec.ROOT / "rtfs_net_tpu_torch" / "configs").resolve()
     ours = yaml.safe_load(path.read_text())
-    theirs = yaml.safe_load((spec.ROOT / "rtfs_net_tpu_torch" / "configs" / shipped).read_text())
+    theirs = yaml.safe_load(shipped.read_text())
     assert ours == theirs and config["reduced"] == []
 
 

@@ -74,7 +74,8 @@ def test_reference_flops_of_both_configs():
         for kind in ("serve", "train"):
             t = {"kind": kind, "seconds_of_audio": 2.0, "sample_rate": 16000, "frames": 50,
                  "frame_size": 88}
-            got[kind] = work.reference_flops(json.dumps(conf), json.dumps(t))
+            got[kind] = work.reference_flops(spec.reference_files(name)["reference"],
+                                             json.dumps(conf), json.dumps(t))
         avnet = got["serve"] - video_flops
         assert video_flops + 2.9 * avnet < got["train"] <= video_flops + 3 * avnet
         # the port's own count (utils/flops.py): 22.10 and 167.2 GMACs

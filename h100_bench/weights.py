@@ -1,27 +1,27 @@
 """Seeded weights, made on the device in one draw, for the reference's
 modules; the same state dict is loaded into the program and the reference.
 
-Each tensor is uniform around a centre: matrices and kernels U(±1/√fan_in)
-(PyTorch's default initialisation), their biases likewise; norm scales
-1 ± 0.1 and shifts ±0.1; PReLU slopes 0.25 ± 0.05; the SRU's gate vectors
-±0.1; BatchNorm running means ±0.1 and variances 1 ± 0.25. Batch counters
-stay 0.
+Each tensor is uniform around a centre: a tensor that the reference
+module's ``INIT`` names, for the class of the module that holds it, on its
+rule (``reference/model.py``: norm scales 1 ± 0.1 and shifts ±0.1, PReLU
+slopes 0.25 ± 0.05, the SRU's gate vectors ±0.1, BatchNorm running means
+±0.1 and variances 1 ± 0.25); any other matrix or kernel U(±1/√fan_in)
+(PyTorch's default initialisation), its bias likewise, and a vector beside
+no matrix ±0.1. Batch counters stay 0.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Tuple
+from typing import Dict, List, Mapping, Tuple
 
 import torch
 from torch import nn
 
-from .reference import model as ref
-
-_NORMS = (ref.GlobalLayerNorm, ref.LayerNormalization4D, ref.BatchNorm, ref.LayerNorm,
-          nn.GroupNorm)
+# module class -> {tensor name: (centre, half-width)}
+Rules = Mapping[type, Mapping[str, Tuple[float, float]]]
 
 
-def _plan(module: nn.Module, prefix: str) -> List[Tuple[str, tuple, float, float]]:
+def _plan(module: nn.Module, init: Rules) -> List[Tuple[str, tuple, float, float]]:
     """(name, shape, centre, half-width) for every floating tensor of
     ``module``'s state dict, in its order."""
     plan = []
@@ -32,17 +32,13 @@ def _plan(module: nn.Module, prefix: str) -> List[Tuple[str, tuple, float, float
             fan_in = w[0].numel()
         for pname, t in list(m.named_parameters(recurse=False)) + list(
                 m.named_buffers(recurse=False)):
-            name = f"{prefix}{mname + '.' if mname else ''}{pname}"
+            name = f"{mname + '.' if mname else ''}{pname}"
             if not t.is_floating_point():
                 continue
-            if isinstance(m, _NORMS) or pname in ("gamma", "beta"):
-                centre, half = {"weight": (1.0, 0.1), "gamma": (1.0, 0.1),
-                                "running_mean": (0.0, 0.1),
-                                "running_var": (1.0, 0.25)}.get(pname, (0.0, 0.1))
-            elif isinstance(m, ref.PReLU):
-                centre, half = 0.25, 0.05
-            elif isinstance(m, ref.SRUCell) and pname != "weight":
-                centre, half = 0.0, 0.1
+            rule = next((r[pname] for cls, r in init.items()
+                         if isinstance(m, cls) and pname in r), None)
+            if rule is not None:
+                centre, half = rule
             elif t.dim() >= 2:
                 centre, half = 0.0, 1.0 / math.sqrt(t[0].numel())
             else:  # a bias beside a matrix or kernel
@@ -51,11 +47,12 @@ def _plan(module: nn.Module, prefix: str) -> List[Tuple[str, tuple, float, float
     return plan
 
 
-def make_state(model: nn.Module, video: nn.Module, seed: int,
-               device) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+def make_state(model: nn.Module, video: nn.Module, seed: int, device,
+               init: Rules) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """The (model, video model) state dicts for ``seed``, float32 on
-    ``device``, drawn with one generator call."""
-    plans = (_plan(model, ""), _plan(video, ""))
+    ``device``, drawn with one generator call, on the reference module's
+    rules ``init``."""
+    plans = (_plan(model, init), _plan(video, init))
     total = sum(math.prod(shape) for plan in plans for _, shape, _, _ in plan)
     gen = torch.Generator(device=device).manual_seed(seed)
     draw = torch.rand(total, generator=gen, device=device) * 2.0 - 1.0

@@ -16,6 +16,8 @@ from typing import Sequence
 
 import torch
 
+from . import spec
+
 # NVIDIA H100 SXM data sheet, dense: HBM rate, float32 outside the tensor
 # cores, bfloat16 on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -88,22 +90,21 @@ def conv_backward_flops(grad_out_shape, x_shape, w_shape, _bias, _stride, _paddi
 
 
 @functools.lru_cache(maxsize=8)
-def reference_flops(conf_json: str, traffic_json: str) -> float:
-    """FLOPs per utterance of the plain reference at the cell's shapes,
-    counted by ``FlopCounterMode`` on the meta device (matmuls and
-    convolutions; elementwise work is not counted): the video model's
-    forward and AVNet's forward, and for a training cell AVNet's backward
-    too."""
+def reference_flops(reference: str, conf_json: str, traffic_json: str) -> float:
+    """FLOPs per utterance of the plain reference module at ``reference``
+    at the cell's shapes, counted by ``FlopCounterMode`` on the meta device
+    (matmuls and convolutions; elementwise work is not counted): the video
+    model's forward and AVNet's forward, and for a training cell AVNet's
+    backward too."""
     from torch.utils.flop_counter import FlopCounterMode
 
-    from .reference import model as ref
     from .reference.train import neg_snr
 
     conf, traffic = json.loads(conf_json), json.loads(traffic_json)
     train = traffic["kind"] == "train"
     n = int(traffic["seconds_of_audio"] * traffic["sample_rate"])
     with torch.device("meta"):
-        model, video = ref.build(conf)
+        model, video = spec.reference(reference).build(conf)
         mix = torch.empty(1, n)
         frames = torch.empty(1, 1, traffic["frames"], traffic["frame_size"],
                              traffic["frame_size"])
