@@ -28,6 +28,9 @@ from .conv_blocks import ConvActNorm, FeedForwardNetwork, make_norm
 # DualPathRNN calls that took the sequence-layout route since the last reset
 # (set it to 0 to reset)
 seq_layout_calls = 0
+# DualPathRNN calls that ran an LSTM or GRU through PyTorch's recurrence on
+# the general route since the last reset (set it to 0 to reset)
+library_route_calls = 0
 
 
 class RNNProjection(nn.Module):
@@ -54,11 +57,16 @@ class RNNProjection(nn.Module):
 
 class DualPathRNN(nn.Module):
     """``dim=4`` runs the recurrence along F, ``dim=3`` along T. Both axes
-    are padded up to the unfold grid. The SRU, LSTM and GRU take the
-    pre-unfold sequence (``window=(k, s)``); the SRU never builds the
-    windows. ``Attn`` attends over the (L, B·F, C·k) windows with the
-    positional encoding indexed by dim 1 (a reference quirk, kept), and
-    ``apply_ffn`` adds a FeedForwardNetwork on C·k channels after it.
+    are padded up to the unfold grid. The SRU takes the pre-unfold
+    sequence (``window=(k, s)``) and never builds the windows; the LSTM,
+    GRU and ``Attn`` take the unfolded (L, B·F, C·k) windows. An LSTM or GRU
+    runs PyTorch's recurrence (``ops/rnn.py``: cuDNN on the card, bfloat16
+    included, which first copies the permuted windows into a contiguous
+    buffer) inside the span ``rtfs.refine.rnn.recurrence`` and counts its
+    call in ``library_route_calls``. ``Attn`` attends over the windows
+    with the positional encoding indexed by dim 1 (a reference quirk,
+    kept), and ``apply_ffn`` adds a FeedForwardNetwork on C·k channels
+    after it.
 
     An SRU DualPathRNN on the ``"scan"`` route at stride 1 with a
     LayerNormalization4D over C runs, when autograd is not recording, in
@@ -119,6 +127,16 @@ class DualPathRNN(nn.Module):
         seq_layout_calls += 1
         return dual_path_out(z, self.linear.bias.float(), x, seq_dim=seq_dim)
 
+    def _library_recurrence(self, y):
+        """The LSTM or GRU over the (L, B·F, C·k) windows, PyTorch's own
+        recurrence, inside its span; the span holds besides only the
+        per-call weight casts, the zero initial state and, on the card,
+        cuDNN's contiguous copy of the windows."""
+        global library_route_calls
+        library_route_calls += 1
+        with span("rtfs.refine.rnn.recurrence"):
+            return self.rnn(y)
+
     def forward(self, x):
         with span("rtfs.refine.rnn"):
             if self.takes_seq_layout(x):
@@ -133,10 +151,11 @@ class DualPathRNN(nn.Module):
             residual = x
             y = self.norm(x)
             y = y.permute(0, 3, 1, 2).reshape(B * new_F, C, new_T)
-            if self.attn:
-                y = self.rnn(unfold_1d(y, k, s).permute(2, 0, 1))
-            else:
+            if isinstance(self.rnn, SRU):
                 y = self.rnn(y, window=(k, s))     # (L, B·F, O)
+            else:
+                y = unfold_1d(y, k, s).permute(2, 0, 1)    # (L, B·F, C·k)
+                y = self.rnn(y) if self.attn else self._library_recurrence(y)
             y = y.permute(1, 2, 0)                  # (B·F, O, L)
             if self.ffn is not None:
                 y = self.ffn(y)

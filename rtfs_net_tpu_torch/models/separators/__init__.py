@@ -6,6 +6,7 @@ from torch import nn
 from .dpt import DPTNet, DPTNetBlock
 from .frcnn import FRCNN, FRCNNBlock
 from .tdanet import TDANet, TDANetBlock
+from .tfgridnet import TFGridNet, TFGridNetBlock
 
 
 class IdentitySeparator(nn.Module):
@@ -18,7 +19,7 @@ class IdentitySeparator(nn.Module):
         return x
 
 
-_REGISTRY = {"TDANet": TDANet, "FRCNN": FRCNN, "DPTNet": DPTNet}
+_REGISTRY = {"TDANet": TDANet, "FRCNN": FRCNN, "DPTNet": DPTNet, "TFGridNet": TFGridNet}
 
 
 def get(identifier):

@@ -27,11 +27,15 @@ Parameters keep the reference's layout, ``rnn_lst.{l}.weight``
 kernels' chunk-major [k][dir][h] once per call.
 
 ``LSTM`` and ``GRU`` have ``nn.LSTM``/``nn.GRU`` semantics and parameter
-names and run PyTorch's own recurrence (cuDNN on the card for float32;
-cuDNN takes no bfloat16 RNN, so a bfloat16 call runs PyTorch's per-step
-CUDA cells). The JAX package runs them as ``lax.scan`` in XLA, not as a
-Pallas kernel. ``sru_v1_layer`` is the SRU-v1 direction the JAX package
-exposes for experiments; no model calls it.
+names and run PyTorch's own recurrence: cuDNN on the card, in float32 and
+in bfloat16 alike (a bfloat16 call on an H100 under PyTorch 2.11 and CUDA
+12.8 launches cuDNN's ``elemWiseRNNcell<__nv_bfloat16, ...>`` and cuBLAS
+GEMMs under ``aten::lstm``). cuDNN takes its input contiguous, so a
+strided input is copied first, and the weights, cast per call, are not one
+flat buffer, so cuDNN packs them anew at every call. The JAX package runs
+them as ``lax.scan`` in XLA, not as a Pallas kernel. ``sru_v1_layer`` is
+the SRU-v1 direction the JAX package exposes for experiments; no model
+calls it.
 """
 from __future__ import annotations
 
@@ -265,14 +269,10 @@ class _LibraryRNN(nn.Module):
             for name in self.names:
                 getattr(self, name).uniform_(-bound, bound, generator=generator)
 
-    def forward(self, x, window=None):
+    def forward(self, x):
         """x: (L, B, input_size), or (B, L, input_size) when ``batch_first``
-        -> (L, B, ndir·H) or (B, L, ndir·H). With ``window=(k, s)``, x is the
-        pre-unfold (B, C, T) tensor with C·k == input_size; its k-wide
-        windows are the (L, B, C·k) sequence."""
+        -> (L, B, ndir·H) or (B, L, ndir·H)."""
         batch_first = self.batch_first
-        if window is not None:
-            x, batch_first = unfold_1d(x, *window).permute(2, 0, 1), False
         weights = [getattr(self, name).to(x.dtype) for name in self.names]
         ndir = 2 if self.bidirectional else 1
         h0 = x.new_zeros((self.num_layers * ndir, x.shape[0 if batch_first else 1],

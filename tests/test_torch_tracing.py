@@ -8,10 +8,12 @@ graph of one with spans off."""
 import contextlib
 import json
 import os
+import pathlib
 
 import numpy as np
 import pytest
 import torch
+import yaml
 from torch.profiler import ExecutionTraceObserver, ProfilerActivity, profile
 
 from rtfs_net_tpu_torch import export
@@ -25,8 +27,12 @@ from test_torch_ctcnet import TINY as CTC_TINY
 
 VIDEO = {"model_name": "FRCNNVideoModel", "backbone_type": "resnet", "relu_type": "prelu",
          "width_mult": 1.0}
+TFGRIDNET_TINY = yaml.safe_load(
+    (pathlib.Path(__file__).parents[1] / "h100_bench" / "tests" / "tiny_tfgridnet.yaml"
+     ).read_text())["audionet"]
 CONFIGS = {"rtfs": {**RTFS_TINY, "pretrained_vout_chan": 512},
-           "ctcnet": {**CTC_TINY, "pretrained_vout_chan": 512}}
+           "ctcnet": {**CTC_TINY, "pretrained_vout_chan": 512},
+           "tfgridnet": TFGRIDNET_TINY}
 B, SAMPLES, FRAMES, SIDE = 2, 4000, 6, 24
 
 # each span -> the span it opens in
@@ -39,18 +45,29 @@ PARENT = {
     "rtfs.refinement": "rtfs.avnet",
     "rtfs.refine.pyramid": "rtfs.refinement",
     "rtfs.refine.rnn": "rtfs.refinement",
+    "rtfs.refine.rnn.recurrence": "rtfs.refine.rnn",
     "rtfs.refine.attention": "rtfs.refinement",
     "rtfs.refine.reconstruct": "rtfs.refinement",
     "rtfs.fusion": "rtfs.refinement",
 }
 # spans a request opens: RTFS-Net's 2 audio blocks (two DualPathRNNs and
 # MHSA2D each) and 1 video block (GlobalAttention) around 1 fusion;
-# CTCNet's 3 audio and 2 video FRCNN blocks around 2 fusions
+# CTCNet's 3 audio and 2 video FRCNN blocks around 2 fusions; TF-GridNet's 2
+# blocks (two BLSTM DualPathRNNs, each recurrence in its own span, and MHSA2D)
+# and RTFS-Net's video block
 COUNTS = {
     "rtfs": {"rtfs.refine.pyramid": 3, "rtfs.refine.rnn": 4, "rtfs.refine.attention": 3,
              "rtfs.refine.reconstruct": 3, "rtfs.fusion": 1},
     "ctcnet": {"rtfs.refine.pyramid": 5, "rtfs.refine.reconstruct": 5, "rtfs.fusion": 2},
+    "tfgridnet": {"rtfs.refine.pyramid": 1, "rtfs.refine.rnn": 4,
+                  "rtfs.refine.rnn.recurrence": 4, "rtfs.refine.attention": 3,
+                  "rtfs.refine.reconstruct": 1, "rtfs.fusion": 1},
 }
+# spans a configuration does not open: CTCNet has no DualPathRNN or
+# attention, and only the LSTM's DualPathRNN runs its recurrence in a span
+ABSENT = {"rtfs": {"rtfs.refine.rnn.recurrence"},
+          "ctcnet": {"rtfs.refine.rnn", "rtfs.refine.rnn.recurrence", "rtfs.refine.attention"},
+          "tfgridnet": set()}
 
 
 @pytest.fixture(scope="module")
@@ -114,8 +131,7 @@ def test_spans_on_nest_as_the_program_runs(served, name, tmp_path):
         assert all(e.end_ns() <= s.end_ns() for s in stack)
         parent.setdefault(e.name(), set()).add(stack[-1].name() if stack else None)
         stack.append(e)
-    names = set(PARENT) - ({"rtfs.refine.rnn", "rtfs.refine.attention"}
-                           if name == "ctcnet" else set())
+    names = set(PARENT) - ABSENT[name]
     assert set(parent) == names
     # nested as listed, and so never inside a span of its own name
     assert all(parent[n] == {PARENT[n]} for n in names)
@@ -159,7 +175,7 @@ def test_trace_writes_the_spans_and_restores_the_switch(served, tmp_path, alread
     files = [f for f in os.listdir(tmp_path) if f.endswith(".json")]
     assert len(files) == 1
     events = json.loads((tmp_path / files[0]).read_text())["traceEvents"]
-    assert set(PARENT) <= {e.get("name") for e in events}
+    assert set(PARENT) - ABSENT["rtfs"] <= {e.get("name") for e in events}
 
 
 def test_export_sees_no_span(monkeypatch):
