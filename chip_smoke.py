@@ -9,7 +9,11 @@ layout kernels (``csrc/dual_path.cu``) launch once each per SRU
 DualPathRNN call, a quarter of K1's count on RTFS-Net's stacks of four
 (8 each per RTFS-Net-4 forward, 2 per TDANet repeat), and the counts are
 held to that as to K1's; paths without K1 (training, the per-direction
-route, LSTM DualPathRNNs, CTCNet) launch neither.
+route, LSTM DualPathRNNs, CTCNet) launch neither. The LSTM or GRU
+DualPathRNN's window kernel (``dual_path_windows_in``, the same source)
+launches once per such DualPathRNN call on an inference path (12 per
+TF-GridNet forward, 8 per RTFS-Net-4 forward with LSTMs, 4 per DPTNet
+AVNet forward) and never elsewhere, and every launch check holds it so.
 
 1. preconditions: a CUDA card; prints ``nvidia-smi``'s name and power limit.
 2. build: the five kernel sources (``csrc/sru_stack_layer.cu``, the
@@ -35,7 +39,13 @@ route, LSTM DualPathRNNs, CTCNet) launch neither.
    (128, 64, 126, 65), the B = 16 float32 one and small odd planes, and K1
    with 7 zero end steps (``pad``) at that block's F and T passes; their
    times at B = 128 beside their plain versions' and the bytes' bound;
-   ``opcheck`` of both ops.
+   ``opcheck`` of both ops. Then ``dual_path_windows_in`` against its
+   plain version along T and F at TF-GridNet's B = 128 bfloat16 block
+   (128, 128, 251, 129), k = 4, and at small planes (k = 3, C·k not a
+   multiple of a vector, L = 1, a permuted x; both dtypes), its time there
+   beside its plain version's, the general route's norm, permute, unfold
+   and copy (``library_ms``) and the bytes' bound, ``opcheck`` of the op,
+   and its 12 launches in a B = 2 bfloat16 TF-GridNet forward.
 4. kernel K3: against its plain version at (B, 64, 251, 129) and
    (B, 64, 125, 64) for B = 16 and 128 with the 4x4 kernel and pads (1, 2)
    of the main path, and at small shapes with a 3x3, a 2x3 and a 7x2
@@ -208,7 +218,8 @@ route, LSTM DualPathRNNs, CTCNet) launch neither.
 22. layer_zoo: the layers no shipped config uses, at full width.
    RTFS-Net-4 with LSTM DualPathRNNs (``rnn_type: LSTM``, cuDNN's
    recurrence in float32) served from embeddings at B = 1, 4, 16 in both
-   dtypes (K3 40 a forward, no K1; B=1 float32 against the CPU) and one
+   dtypes (K3 40 and ``dual_path_windows_in`` 8 a forward, no K1; B=1
+   float32 against the CPU) and one
    bfloat16 ``System.train_step`` at B = 4 (K3 120, no K2); one
    DualPathRNN alone at B = 16 with the LSTM against the SRU (K1), and
    the LSTM module against ``nn.LSTM`` with flattened weights (what the
@@ -371,6 +382,10 @@ DUAL_PATH_CALLS = REPEATS * 2  # 8
 # the kernels a serving forward launches, and how often
 SERVE_LAUNCHES = {"K1": SRU_LAUNCHES, "K3": DW_LAUNCHES, "dual_path_norm_in": DUAL_PATH_CALLS,
                   "dual_path_out": DUAL_PATH_CALLS}
+# TF-GridNet's block: the window kernel's (C, T, F) plane and k; its
+# LSTM DualPathRNN calls per forward (6 blocks of 2), one launch each
+GRID_PLANE, GRID_KERNEL, GRID_WINDOW_CALLS = (128, 251, 129), 4, 12
+GRID_CONFIG = "lrs2_TFGridNet_6_layer"
 # the layout kernels' (C, T, F) plane: RTFS-Net-4's global features from the
 # benchmark's 2 s frames (F = 65 leaves a partial tile); the DualPathRNN's
 # kernel size, whose k - 1 zero end steps K1 writes around its last layer
@@ -470,6 +485,7 @@ def reset_launch_counts():
     ksru, ktrain, kdw, kdir, kdp = kernel_modules()
     ksru.launches = ktrain.forward_launches = ktrain.backward_launches = 0
     kdw.launches = kdir.launches = kdp.norm_in_launches = kdp.out_launches = 0
+    kdp.windows_in_launches = 0
 
 
 def launches_of(fn, want, what):
@@ -2817,7 +2833,8 @@ def dpt_launches(conf):
     """K1, K3 and layout-kernel launches of one serving forward of an AVNet
     whose audio net is the DPTNet of ``conf``: every repeat runs each SRU
     DualPathRNN layer (one K1 launch each, and one of each layout kernel per
-    DualPathRNN) and each GlobalAttention2D's group FFN twice (one
+    DualPathRNN), each LSTM or GRU DualPathRNN (one window-kernel launch)
+    and each GlobalAttention2D's group FFN twice (one
     K3 launch each: its 2-D depthwise refiner). A train step launches K2
     forward twice per layer (the checkpointed block runs again in the
     backward), K2 backward once, and K3 three times per conv (forward,
@@ -2830,7 +2847,10 @@ def dpt_launches(conf):
                                  if l["layer_type"] == "GlobalAttention2D" and l["group_ffn"])
     dp = params["repeats"] * sum(1 for l in layers
                                  if l["layer_type"] == "DualPathRNN" and l["rnn_type"] == "SRU")
-    return ({"K1": k1, "K3": k3, "dual_path_norm_in": dp, "dual_path_out": dp},
+    windows = params["repeats"] * sum(1 for l in layers if l["layer_type"] == "DualPathRNN"
+                                      and l["rnn_type"] in ("LSTM", "GRU"))
+    return ({"K1": k1, "K3": k3, "dual_path_norm_in": dp, "dual_path_out": dp,
+             "dual_path_windows_in": windows},
             {"K2_forward": 2 * k1, "K2_backward": k1, "K3": 3 * k3})
 
 
@@ -3172,6 +3192,118 @@ def check_dual_path_kernels():
             for name, acc in timed.items()}
 
 
+def check_dual_path_windows(smi):
+    """The LSTM or GRU DualPathRNN's window kernel (``csrc/dual_path.cu``,
+    ``dual_path_windows_in``) against its plain version at TF-GridNet's
+    B = 128 bfloat16 block along T and F (k = 4) and at small planes; its
+    device time there beside its plain version's, the general route's norm,
+    permute, unfold and copy (``library_ms``) and its bytes' bound (x read
+    once, the windows written once); ``opcheck`` of the op; then one B = 2
+    bfloat16 TF-GridNet forward from embeddings at full width, random
+    weights, with its ``GRID_WINDOW_CALLS`` window launches and no K1, K2,
+    K4 or SRU layout launch. Returns the kernel's row for the ``kernels``
+    line (ms, plain_ms, library_ms and the bound averaged over the two axes)
+    and the forward's launches."""
+    import torch
+
+    from rtfs_net_tpu_torch.models import build_model
+    from rtfs_net_tpu_torch.ops.conv import unfold_1d
+    from rtfs_net_tpu_torch.ops.normalizations import LayerNormalization4D
+    from rtfs_net_tpu_torch.scripts import load_config
+
+    _, _, _, _, kdp = kernel_modules()
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    bf16, f32 = torch.bfloat16, torch.float32
+    big, k = (BIG_BATCH, *GRID_PLANE), GRID_KERNEL
+
+    def inputs(shape, dtype, permuted=False):
+        B, C, T, F_ = shape
+        if permuted:  # laid out (B, T, C, F), as a DualPathRNN along F hands x on
+            x = torch.randn((B, T, C, F_), generator=gen, device="cuda").permute(0, 2, 1, 3)
+        else:
+            x = torch.randn(shape, generator=gen, device="cuda")
+        gamma = 1 + 0.1 * torch.randn(C, generator=gen, device="cuda")
+        return (3 * x + 1).to(dtype), gamma, 0.1 * torch.randn(C, generator=gen, device="cuda")
+
+    # (shape, k, dtype, permuted): the B = 128 block; k = 3 with C·k = 15 (the
+    # kernel for any k, scalar stores); L = 1 along T; a permuted x
+    cases = [(big, k, bf16, False), ((3, 5, 37, 33), 3, f32, False),
+             ((3, 5, 37, 33), 3, bf16, False), ((2, 7, 4, 40), 4, bf16, False),
+             ((1, 3, 70, 9), 4, f32, True), ((2, 128, 21, 129), 4, bf16, True)]
+    rows, worst = [], 0.0
+    for (shape, kk, dtype, permuted), seq_dim in itertools.product(cases, (2, 3)):
+        x, gamma, beta = inputs(shape, dtype, permuted)
+        got = kdp.dual_path_windows_in(x, gamma, beta, seq_dim=seq_dim, k=kk, eps=1e-5)
+        want = kdp.dual_path_windows_in_ref(x, gamma, beta, seq_dim, kk, 1e-5)
+        ok, err = tolerance_ok(got, want, dtype)
+        rows.append({"x": shape, "k": kk, "permuted": permuted, "seq_dim": seq_dim,
+                     "dtype": dtype_name(dtype), "max_abs_err": err})
+        if not (ok and got.shape == want.shape and got.is_contiguous()):
+            fail(f"dual_path_windows_in at {shape} k={kk} seq_dim={seq_dim} {dtype}: {err}, "
+                 f"{tuple(got.shape)}")
+        if shape == big:
+            worst = max(worst, err)
+        del x, got, want
+    print("dual_path_windows_in checks " + json.dumps(rows))
+    item = torch.tensor([], dtype=bf16).element_size()
+    norm = LayerNormalization4D(GRID_PLANE[0]).cuda()
+    timed = collections.Counter()
+    for seq_dim in (2, 3):
+        x, gamma, beta = inputs(big, bf16)
+        with torch.no_grad():
+            norm.gamma.copy_(gamma.view(norm.gamma.shape))
+            norm.beta.copy_(beta.view(norm.beta.shape))
+
+        def library(x=x, seq_dim=seq_dim):
+            """The general route's entry, as ``DualPathRNN.forward`` ran it, with the
+            copy cuDNN made of its permuted windows."""
+            xx = x.transpose(-2, -1) if seq_dim == 3 else x
+            B, C, S, O = xx.shape
+            y = norm(xx).permute(0, 3, 1, 2).reshape(B * O, C, S)
+            return unfold_1d(y, k).permute(2, 0, 1).contiguous()
+
+        moved = (x.numel() + math.prod(kdp.window_shape(big, seq_dim, k))) * item
+        with torch.no_grad():
+            ms = event_ms(lambda: kdp.dual_path_windows_in(x, gamma, beta, seq_dim=seq_dim,
+                                                           k=k, eps=1e-5), reps=20)
+            plain_ms = event_ms(lambda: kdp.dual_path_windows_in_ref(x, gamma, beta, seq_dim,
+                                                                     k, 1e-5), reps=3, warmup=1)
+            library_ms = event_ms(library, reps=3, warmup=1)
+        bound_ms = moved / HBM_BYTES_PER_S * 1e3
+        print("dual_path_windows_in " + json.dumps({
+            "x": list(big), "k": k, "seq_dim": seq_dim, "dtype": "bfloat16", "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_share": bound_ms / ms, "GB_per_s": moved / ms / 1e6, "card": smi}))
+        timed.update({"ms": ms / 2, "plain_ms": plain_ms / 2, "library_ms": library_ms / 2,
+                      "bound_ms": bound_ms / 2})
+        del x, gamma, beta
+        torch.cuda.empty_cache()
+    opcheck("dual_path_windows_in",
+            [(*inputs((2, 5, 9, 7), f32), 2, 4, 1e-5), (*inputs((2, 5, 9, 7), bf16), 3, 3, 1e-5),
+             (*inputs((2, 5, 9, 7), bf16, True), 2, 4, 1e-5)])
+    model = build_model(load_config(GRID_CONFIG), device="cuda",
+                        generator=torch.Generator().manual_seed(0)).eval()
+    mix = torch.randn((2, SAMPLES), generator=gen, device="cuda").to(bf16)
+    emb = 0.1 * torch.randn((2, LIP_CHANNELS, LIP_FRAMES), generator=gen, device="cuda")
+    before = launch_counts()
+    with torch.no_grad():
+        out = model(mix, emb.to(bf16))
+    torch.cuda.synchronize()
+    launches = {name: n - before[name] for name, n in launch_counts().items()}
+    others = {name: n for name, n in launches.items()
+              if name not in ("K3", "dual_path_windows_in") and n}
+    if launches["dual_path_windows_in"] != GRID_WINDOW_CALLS or others:
+        fail(f"TF-GridNet forward: launches {launches}, want {GRID_WINDOW_CALLS} of "
+             "dual_path_windows_in and no K1, K2, K4 or SRU layout kernel")
+    if not torch.isfinite(out.float()).all():
+        fail("TF-GridNet forward: non-finite output")
+    print("dual_path_windows_in TF-GridNet B=2 bfloat16 forward launches "
+          + json.dumps(launches))
+    del model, out
+    torch.cuda.empty_cache()
+    return {"max_abs_err": worst, **timed, "bound_by": "bytes"}, launches
+
+
 def check_zoo_kernels():
     """K1, K2 and K3 against their plain versions at the DPTNet AVNet's
     shapes: K1 at (122, k·64, 251·B) for B = 1, 4, 16, K2's forward and
@@ -3219,10 +3351,11 @@ def check_layer_zoo(smi):
                                       device="cuda"))
                 for B in SERVE_BATCHES}
 
-    # (a) RTFS-Net-4 with LSTM DualPathRNNs: K3 only
+    # (a) RTFS-Net-4 with LSTM DualPathRNNs: K3 and the window kernel
     model = build_model(lstm_conf(), device="cuda", generator=torch.Generator().manual_seed(0))
     paths["lstm_serving"], outs, out["lstm_serving"] = check_serving(
-        "layer_zoo serving (LSTM)", model, requests, want={"K3": DW_LAUNCHES})
+        "layer_zoo serving (LSTM)", model, requests,
+        want={"K3": DW_LAUNCHES, "dual_path_windows_in": DUAL_PATH_CALLS})
     del outs
     paths["lstm_train"], out["lstm_train"] = zoo_train_step(
         "layer_zoo train step (LSTM)", model, {"K3": 3 * DW_LAUNCHES}, torch.bfloat16)
@@ -3515,6 +3648,7 @@ def main():
           f"{time.perf_counter() - t0:.3f} s")
     sru = check_sru_kernel()
     dual_path = check_dual_path_kernels()
+    windows, grid_launches = check_dual_path_windows(smi)
     dw = check_dw_conv_kernel()
     direction = check_sru_direction_kernel()
     model, video, requests, frame_requests = serving_setup()
@@ -3557,6 +3691,7 @@ def main():
     rtfs4 = next(row for row in zoo_rows if row["config"] == "lrs2_RTFSNet_4_layer")
     check_loader(smi, rtfs4[f"train_b{TRAIN_BATCHES[-1]}_utt_per_s"])
     by_path = {"serving": launches, "serving_from_frames": frame_launches,
+               "tfgridnet": grid_launches,
                "per_direction": direction_launches, "train": train_launches,
                "fit": fit_launches, "evaluate": eval_launches, "separate": separate_launches,
                "export": export_launches, "ctcnet": ctcnet_launches,
@@ -3600,10 +3735,19 @@ def main():
                         "launches": launches[name], "shape": [BIG_BATCH, *DUAL_PATH_PLANE],
                         "dtype": "bfloat16", **{key: dual_path[name][key] for key in keys},
                         "library_ms": None})
+    # the LSTM or GRU DualPathRNN's pass into cuDNN's window layout: no TPU
+    # kernel has its work either; its library call is the general route's
+    # norm, permute, unfold and the copy cuDNN made of the permuted windows
+    summary.append({"name": "dual_path_windows_in", "route": "cuda",
+                    "source": "rtfs_net_tpu_torch/csrc/dual_path.cu", "replaces": None,
+                    "launches": grid_launches["dual_path_windows_in"],
+                    "shape": [BIG_BATCH, *GRID_PLANE], "k": GRID_KERNEL, "dtype": "bfloat16",
+                    **{key: windows[key] for key in keys}, "library_ms": windows["library_ms"]})
     # each kernel's launches on every path that ran it, each path counted
     # from 0 just before it and read just after
     for entry, count in zip(summary, ("K1", "K2_forward", "K2_backward", "K3", "K4",
-                                      "dual_path_norm_in", "dual_path_out")):
+                                      "dual_path_norm_in", "dual_path_out",
+                                      "dual_path_windows_in")):
         entry["launches_by_path"] = {path: counts[count] for path, counts in by_path.items()
                                      if counts[count]}
     print(smi)

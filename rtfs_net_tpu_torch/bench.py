@@ -50,7 +50,8 @@ def launch_counts():
     return {"K1": sru.launches, "K2_forward": sru_train.forward_launches,
             "K2_backward": sru_train.backward_launches, "K3": dw_conv.launches,
             "K4": sru_direction.launches, "dual_path_norm_in": dual_path.norm_in_launches,
-            "dual_path_out": dual_path.out_launches}
+            "dual_path_out": dual_path.out_launches,
+            "dual_path_windows_in": dual_path.windows_in_launches}
 
 
 def launched(fn):

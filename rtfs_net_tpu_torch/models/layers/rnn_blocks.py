@@ -18,9 +18,9 @@ from torch import nn
 from ...ops import activations
 from ...ops.conv import ConvTranspose, Linear, unfold_1d
 from ...ops.dropout import Dropout
-from ...ops.kernels.dual_path import dual_path_norm_in, dual_path_out
+from ...ops.kernels.dual_path import dual_path_norm_in, dual_path_out, dual_path_windows_in
 from ...ops.normalizations import LayerNorm, LayerNormalization4D
-from ...ops.rnn import GRU, LSTM, SRU, get_rnn
+from ...ops.rnn import GRU, LSTM, SRU, _LibraryRNN, get_rnn
 from ...utils.profiling import span
 from .attention_blocks import MultiHeadSelfAttention
 from .conv_blocks import ConvActNorm, FeedForwardNetwork, make_norm
@@ -28,8 +28,12 @@ from .conv_blocks import ConvActNorm, FeedForwardNetwork, make_norm
 # DualPathRNN calls that took the sequence-layout route since the last reset
 # (set it to 0 to reset)
 seq_layout_calls = 0
-# DualPathRNN calls that ran an LSTM or GRU through PyTorch's recurrence on
-# the general route since the last reset (set it to 0 to reset)
+# DualPathRNN calls that took the window-layout route since the last reset
+# (set it to 0 to reset)
+window_layout_calls = 0
+# DualPathRNN calls that ran an LSTM or GRU through PyTorch's recurrence, on
+# the window-layout route or the general one, since the last reset (set it
+# to 0 to reset)
 library_route_calls = 0
 
 
@@ -61,9 +65,10 @@ class DualPathRNN(nn.Module):
     sequence (``window=(k, s)``) and never builds the windows; the LSTM,
     GRU and ``Attn`` take the unfolded (L, B·F, C·k) windows. An LSTM or GRU
     runs PyTorch's recurrence (``ops/rnn.py``: cuDNN on the card, bfloat16
-    included, which first copies the permuted windows into a contiguous
-    buffer) inside the span ``rtfs.refine.rnn.recurrence`` and counts its
-    call in ``library_route_calls``. ``Attn`` attends over the windows
+    included, which copies a permuted, strided input such as this route's
+    windows into a contiguous buffer first) inside the span
+    ``rtfs.refine.rnn.recurrence`` and counts its call in
+    ``library_route_calls``. ``Attn`` attends over the windows
     with the positional encoding indexed by dim 1 (a reference quirk,
     kept), and ``apply_ffn`` adds a FeedForwardNetwork on C·k channels
     after it.
@@ -78,8 +83,16 @@ class DualPathRNN(nn.Module):
     transposed conv is one batched matmul over that buffer's overlapping
     windows with the taps reversed, and a second kernel adds the bias and
     the residual on the way back to (B, C, T, F). Stride 1 pads nothing, so
-    x itself is the residual. Every other call, training among them, takes
-    the route below it."""
+    x itself is the residual.
+
+    An LSTM or GRU DualPathRNN at stride 1 with no FFN and a
+    LayerNormalization4D over C takes, when autograd is not recording, the
+    window-layout route: one kernel normalises x straight into the
+    contiguous (L, rows, C·k) windows cuDNN reads
+    (``ops/kernels/dual_path.py:dual_path_windows_in``), so neither the
+    unfold nor cuDNN copies them, and the recurrence and the general route's
+    exit follow as they are, with x as the residual. Every other call,
+    training among them, takes the general route."""
 
     def __init__(self, in_chan: int, hid_chan: int, dim: int, kernel_size: int = 8,
                  stride: int = 1, rnn_type: str = "LSTM", num_layers: int = 1,
@@ -100,14 +113,23 @@ class DualPathRNN(nn.Module):
                     if apply_ffn else None)
         self.linear = ConvTranspose(rnn_out, in_chan, kernel_size, ndim=1, stride=stride)
 
-    def takes_seq_layout(self, x) -> bool:
-        """Whether this call of ``forward`` takes the sequence-layout route."""
-        return (isinstance(self.rnn, SRU) and self.rnn.route() == "scan"
-                and self.stride == 1 and self.ffn is None
-                and isinstance(self.norm, LayerNormalization4D)
+    def _layout_route(self, x) -> bool:
+        """What both layout routes need: stride 1 (the unfold pads nothing),
+        no FFN, a LayerNormalization4D over C, a dtype the kernels take and
+        autograd not recording."""
+        return (self.stride == 1 and self.ffn is None
+                and isinstance(self.norm, LayerNormalization4D) and self.norm.dims == (1,)
                 and x.dtype in (torch.float32, torch.bfloat16)
                 and not (torch.is_grad_enabled()
                          and (x.requires_grad or any(p.requires_grad for p in self.parameters()))))
+
+    def takes_seq_layout(self, x) -> bool:
+        """Whether this call of ``forward`` takes the sequence-layout route."""
+        return isinstance(self.rnn, SRU) and self.rnn.route() == "scan" and self._layout_route(x)
+
+    def takes_window_layout(self, x) -> bool:
+        """Whether this call of ``forward`` takes the window-layout route."""
+        return isinstance(self.rnn, _LibraryRNN) and self._layout_route(x)
 
     def _forward_seq_layout(self, x):
         global seq_layout_calls
@@ -127,20 +149,53 @@ class DualPathRNN(nn.Module):
         seq_layout_calls += 1
         return dual_path_out(z, self.linear.bias.float(), x, seq_dim=seq_dim)
 
+    def _forward_window_layout(self, x):
+        global window_layout_calls
+        if x.shape[3] > 1 and x.stride(3) != 1:
+            x = x.contiguous()
+        C = x.shape[1]
+        y = dual_path_windows_in(x, self.norm.gamma.view(C).float(),
+                                 self.norm.beta.view(C).float(), seq_dim=self.dim - 1,
+                                 k=self.kernel_size, eps=self.norm.eps)   # (L, B·F, C·k)
+        window_layout_calls += 1
+        y = self._library_recurrence(y)
+        if self.dim == 4:
+            x = x.transpose(-2, -1)
+        return self._exit(y, x, *x.shape[2:])
+
     def _library_recurrence(self, y):
         """The LSTM or GRU over the (L, B·F, C·k) windows, PyTorch's own
         recurrence, inside its span; the span holds besides only the
-        per-call weight casts, the zero initial state and, on the card,
-        cuDNN's contiguous copy of the windows."""
+        per-call weight casts, the zero initial state and, on the card for
+        the general route's strided windows, cuDNN's contiguous copy of
+        them."""
         global library_route_calls
         library_route_calls += 1
         with span("rtfs.refine.rnn.recurrence"):
             return self.rnn(y)
 
+    def _exit(self, y, residual, old_T, old_F):
+        """The general route's exit: the recurrence's (L, B·F, O) output
+        through the FFN, if any, and the ConvTranspose1d overlap-add back to
+        (B, C, T, F) (T the recurrent axis, as ``residual`` has it), plus
+        the residual, cut to (old_T, old_F)."""
+        B, C, new_T, new_F = residual.shape
+        y = y.permute(1, 2, 0)                  # (B·F, O, L)
+        if self.ffn is not None:
+            y = self.ffn(y)
+        y = self.linear(y)                      # (B·F, C, new_T)
+        y = y.reshape(B, new_F, C, new_T).permute(0, 2, 3, 1)
+        y = (y + residual)[..., :old_T, :old_F]
+        if self.dim == 4:
+            y = y.transpose(-2, -1)
+        return y
+
     def forward(self, x):
         with span("rtfs.refine.rnn"):
             if self.takes_seq_layout(x):
                 return self._forward_seq_layout(x)
+            if self.takes_window_layout(x):
+                return self._forward_window_layout(x)
             if self.dim == 4:
                 x = x.transpose(-2, -1)
             B, C, old_T, old_F = x.shape
@@ -148,7 +203,6 @@ class DualPathRNN(nn.Module):
             new_T = int(math.ceil((old_T - k) / s) * s + k)
             new_F = int(math.ceil((old_F - k) / s) * s + k)
             x = F.pad(x, (0, new_F - old_F, 0, new_T - old_T))
-            residual = x
             y = self.norm(x)
             y = y.permute(0, 3, 1, 2).reshape(B * new_F, C, new_T)
             if isinstance(self.rnn, SRU):
@@ -156,15 +210,7 @@ class DualPathRNN(nn.Module):
             else:
                 y = unfold_1d(y, k, s).permute(2, 0, 1)    # (L, B·F, C·k)
                 y = self.rnn(y) if self.attn else self._library_recurrence(y)
-            y = y.permute(1, 2, 0)                  # (B·F, O, L)
-            if self.ffn is not None:
-                y = self.ffn(y)
-            y = self.linear(y)                      # (B·F, C, new_T)
-            y = y.reshape(B, new_F, C, new_T).permute(0, 2, 3, 1)
-            y = (y + residual)[..., :old_T, :old_F]
-            if self.dim == 4:
-                y = y.transpose(-2, -1)
-            return y
+            return self._exit(y, x, old_T, old_F)
 
 
 class ConvLSTMCell(nn.Module):

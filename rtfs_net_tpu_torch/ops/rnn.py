@@ -31,8 +31,10 @@ names and run PyTorch's own recurrence: cuDNN on the card, in float32 and
 in bfloat16 alike (a bfloat16 call on an H100 under PyTorch 2.11 and CUDA
 12.8 launches cuDNN's ``elemWiseRNNcell<__nv_bfloat16, ...>`` and cuBLAS
 GEMMs under ``aten::lstm``). cuDNN takes its input contiguous, so a
-strided input is copied first, and the weights, cast per call, are not one
-flat buffer, so cuDNN packs them anew at every call. The JAX package runs
+strided input is copied first (the DualPathRNN's window-layout route hands
+it contiguous windows; its general route's permuted windows are copied),
+and the weights, cast per call, are not one flat buffer, so cuDNN packs
+them anew at every call. The JAX package runs
 them as ``lax.scan`` in XLA, not as a Pallas kernel. ``sru_v1_layer`` is
 the SRU-v1 direction the JAX package exposes for experiments; no model
 calls it.

@@ -72,7 +72,8 @@ def test_launch_counts_cover_every_phase_and_kernel(result):
     assert list(launches) == ["serving", "train_b4", "train_b16"]
     for counts in launches.values():
         assert counts == {"K1": 0, "K2_forward": 0, "K2_backward": 0, "K3": 0, "K4": 0,
-                          "dual_path_norm_in": 0, "dual_path_out": 0}
+                          "dual_path_norm_in": 0, "dual_path_out": 0,
+                          "dual_path_windows_in": 0}
 
 
 def test_cli_refuses_to_run_without_a_card():

@@ -1,6 +1,6 @@
-"""The SRU DualPathRNN's layout kernels on an NVIDIA card
+"""The DualPathRNN's layout kernels on an NVIDIA card
 (``rtfs_net_tpu_torch/csrc/dual_path.cu``), against their plain versions,
-and the route they serve.
+and the routes they serve.
 
 Marked ``card``; each test skips without a card. Neither this file nor what
 it imports loads JAX, so it runs on a machine without it (``--noconftest``
@@ -16,7 +16,14 @@ keeps the suite's JAX-importing ``conftest.py`` out)::
   rounding that may land on the neighbouring value);
 * K1 with zero end steps (``pad``) against its plain version, zero padded;
 * the DualPathRNN's sequence-layout route against its autograd route on
-  the same weights, at RTFS-Net-4's widths, both axes and both dtypes.
+  the same weights, at RTFS-Net-4's widths, both axes and both dtypes;
+* ``dual_path_windows_in`` along T and F, both dtypes, at TF-GridNet's
+  block (C = 128, T = 251, F = 129) with B = 2 and k = 4, and at small
+  sizes: L = 1, k = 3 (the kernel for any k), C·k not a multiple of a
+  16-byte vector (scalar stores), x permuted as a DualPathRNN along F
+  hands it on; the tolerances above;
+* the LSTM DualPathRNN's window-layout route against its autograd route at
+  TF-GridNet's widths, both axes and both dtypes.
 """
 import pytest
 import torch
@@ -122,6 +129,61 @@ def test_seq_layout_route_at_rtfs4_widths(card, dim, dtype):
         got = m(x)
     torch.cuda.synchronize()
     assert rnn_blocks.seq_layout_calls == calls + 1 and sru.launches == launches + 4
+    want = m(x).detach()
+    scale = want.float().abs().max().item()
+    atol = (1e-4 if dtype == torch.float32 else 2 ** -5) * scale
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+
+
+# (B, C, T, F, k, permuted): TF-GridNet's block at B = 2; L = 1 along T; k = 3;
+# C·k = 15 (no 16-byte vectors); x laid out (B, T, C, F)
+WINDOW_CASES = [(2, 128, 251, 129, 4, False), (2, 7, 4, 40, 4, False), (3, 5, 37, 33, 3, False),
+                (1, 3, 70, 9, 4, True), (2, 128, 21, 129, 4, True)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("seq_dim", [2, 3], ids=["T", "F"])
+@pytest.mark.parametrize("case", WINDOW_CASES, ids=["x".join(map(str, c)) for c in WINDOW_CASES])
+def test_windows_in_kernel(card, case, seq_dim, dtype):
+    *shape, k, permuted = case
+    gen = torch.Generator(device=card).manual_seed(sum(shape) + seq_dim)
+    C = shape[1]
+    if permuted:
+        B, _, T, F = shape
+        x = (_randn(gen, B, T, C, F, device=card) * 3 + 1).to(dtype).permute(0, 2, 1, 3)
+    else:
+        x = (_randn(gen, *shape, device=card) * 3 + 1).to(dtype)
+    gamma = 1 + 0.1 * _randn(gen, C, device=card)
+    beta = 0.1 * _randn(gen, C, device=card)
+    before = dual_path.windows_in_launches
+    got = dual_path.dual_path_windows_in(x, gamma, beta, seq_dim=seq_dim, k=k, eps=1e-5)
+    torch.cuda.synchronize()
+    assert dual_path.windows_in_launches == before + 1
+    want = dual_path.dual_path_windows_in_ref(x, gamma, beta, seq_dim, k, 1e-5)
+    assert got.shape == want.shape and got.dtype == dtype and got.is_contiguous()
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("dim", [3, 4])
+def test_window_layout_route_at_tfgridnet_widths(card, dim, dtype):
+    """TF-GridNet's DualPathRNN (C = 128, BLSTM of 192, kernel 4) on a
+    (2, 128, 251, 129) block, against the same module with gradients on
+    (cuDNN's training form on the unfolded windows); the tolerances of the
+    sequence-layout route's test."""
+    torch.manual_seed(1)
+    m = rnn_blocks.DualPathRNN(128, 192, dim, kernel_size=4, rnn_type="LSTM")
+    with torch.no_grad():
+        for p in m.parameters():
+            p.add_(0.1 * torch.randn_like(p))
+    m = m.to(card).eval()
+    x = torch.randn((2, 128, 251, 129), device=card).to(dtype)
+    calls, launches = rnn_blocks.window_layout_calls, dual_path.windows_in_launches
+    with torch.no_grad():
+        got = m(x)
+    torch.cuda.synchronize()
+    assert rnn_blocks.window_layout_calls == calls + 1
+    assert dual_path.windows_in_launches == launches + 1
     want = m(x).detach()
     scale = want.float().abs().max().item()
     atol = (1e-4 if dtype == torch.float32 else 2 ** -5) * scale

@@ -1,8 +1,8 @@
 """TF-GridNet at its published widths on an NVIDIA card
 (``rtfs_net_tpu_torch/configs/lrs2_TFGridNet_6_layer.yaml``): the port's
 bfloat16 ``separate`` from raw frames against the benchmark's float32
-plain reference (``h100_bench/reference/tfgridnet.py``), the general
-DualPathRNN route's counter and its recurrence span.
+plain reference (``h100_bench/reference/tfgridnet.py``), the
+DualPathRNN's window-layout route's counters and its recurrence span.
 
 Marked ``card``; each test skips without a card. Neither this file nor what
 it imports loads JAX, so it runs on a machine without it::
@@ -24,6 +24,7 @@ import yaml
 
 from h100_bench import check, program, spec, trace
 from rtfs_net_tpu_torch.models.layers import rnn_blocks
+from rtfs_net_tpu_torch.ops.kernels import dual_path
 from rtfs_net_tpu_torch.utils import profiling
 from rtfs_net_tpu_torch.utils.separator import separate
 
@@ -68,11 +69,23 @@ def test_twelve_library_route_calls_a_forward(served):
     assert rnn_blocks.library_route_calls - before == 12
 
 
+def test_twelve_window_layout_calls_a_forward(served):
+    """Every BLSTM DualPathRNN of the six blocks takes the window-layout
+    route: one launch of ``dual_path_windows_in`` each."""
+    _, _, port, port_video, mix, frames = served
+    calls, launches = rnn_blocks.window_layout_calls, dual_path.windows_in_launches
+    separate(port, mix, frames, video_model=port_video, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert rnn_blocks.window_layout_calls - calls == 12
+    assert dual_path.windows_in_launches - launches == 12
+
+
 def test_recurrence_span_holds_the_lstm(served):
     """With spans on, 12 ``rtfs.refine.rnn.recurrence`` ranges a request,
     each inside an ``rtfs.refine.rnn`` and around one ``aten::lstm`` (host
     events; the profiler's device-side copies of the ranges are left out);
-    prints the kernels launched under ``aten::lstm``, by device time."""
+    prints the kernels launched under ``aten::lstm``, by device time, none
+    of which is PyTorch's strided copy: the windows reach cuDNN contiguous."""
     _, _, port, port_video, mix, frames = served
     undo = profiling.switch_spans_on()
     holder = {}
@@ -93,3 +106,4 @@ def test_recurrence_span_holds_the_lstm(served):
     assert kernels
     for name, ms in kernels.most_common(12):
         print(f"kernel {ms:.3f} ms {name[:140]}")
+    assert not [name for name in kernels if "direct_copy" in name]

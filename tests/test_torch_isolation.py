@@ -123,9 +123,15 @@ def _dual_path_out_call(module):
     return module.dual_path_out_cuda(_on_card(4, 3, 10), _on_card(3), _on_card(2, 3, 5, 4), 3)
 
 
+def _dual_path_windows_in_call(module):
+    return module.dual_path_windows_in_cuda(_on_card(2, 3, 5, 4), _on_card(3), _on_card(3), 3, 4,
+                                            1e-5)
+
+
 # the plain version -> (its op, the CUDA implementation's launch count, its build cache)
 OPS = {"dual_path_norm_in_ref": ("dual_path_norm_in", "norm_in_launches", "_fns"),
        "dual_path_out_ref": ("dual_path_out", "out_launches", "_fns"),
+       "dual_path_windows_in_ref": ("dual_path_windows_in", "windows_in_launches", "_fns"),
        "dw_conv2d_same_ref": ("dw_conv2d_same", "launches", "_fn"),
        "sru_direction_ref": ("sru_direction", "launches", "_fn"),
        "sru_stack_layer_ref": ("sru_stack_layer", "launches", "_fn"),
@@ -141,6 +147,7 @@ OPS = {"dual_path_norm_in_ref": ("dual_path_norm_in", "norm_in_launches", "_fns"
     ("sru_train", "sru_train_backward_ref", _sru_train_backward_call),
     ("dual_path", "dual_path_norm_in_ref", _dual_path_norm_in_call),
     ("dual_path", "dual_path_out_ref", _dual_path_out_call),
+    ("dual_path", "dual_path_windows_in_ref", _dual_path_windows_in_call),
 ])
 def test_wrapper_raises_without_a_build(monkeypatch, tmp_path, name, plain, call):
     """Each op has a CUDA implementation registered, and that

@@ -1,12 +1,12 @@
 """The kernels as registered operators (``rtfs_net_tpu_torch/ops/kernels``):
-``torch.library.opcheck`` on each of the seven ``rtfs::`` ops with CPU
+``torch.library.opcheck`` on each of the eight ``rtfs::`` ops with CPU
 inputs, where the dispatcher runs the plain version. It checks the schema,
 the fake (shape-only) implementation against the real outputs' metadata,
 the autograd registration and tracing through AOT dispatch. Small shapes:
 k = 3 and 4, skip None and given, K1's zero end steps, both sequence
-axes of the DualPathRNN's passes, uneven pads, operands sliced out of a
-larger tensor. On the card ``chip_smoke.py`` runs the same check against
-the CUDA kernels."""
+axes of the DualPathRNN's passes, the window pass on a permuted x, uneven
+pads, operands sliced out of a larger tensor. On the card ``chip_smoke.py``
+runs the same check against the CUDA kernels."""
 import numpy as np
 import pytest
 import torch
@@ -52,6 +52,12 @@ def _cases():
         S, rows = (7, 12) if seq_dim == 2 else (6, 14)
         cases.append((f"dual_path_out-seq{seq_dim}", "dual_path_out",
                       (_t(rng, S, 3, rows), _t(rng, 3), x, seq_dim)))
+        cases.append((f"dual_path_windows_in-seq{seq_dim}", "dual_path_windows_in",
+                      (x, gamma, beta, seq_dim, 4, 1e-5)))
+    # x laid out (B, T, C, F), as a DualPathRNN along F hands it to the next one
+    x = _t(rng, 2, 7, 3, 6).permute(0, 2, 1, 3)
+    cases.append(("dual_path_windows_in-permuted", "dual_path_windows_in",
+                  (x, _t(rng, 3), _t(rng, 3), 2, 3, 1e-5)))
     proj = _t(rng, L, ROWS, 4, 2 * H)  # slices of one projection, as the "pallas" route has them
     gates = [_t(rng, H) for _ in range(4)]
     for reverse in (False, True):
@@ -69,7 +75,7 @@ def test_opcheck(op, args):
 
 
 def test_every_op_is_registered_for_each_device():
-    assert len(kernels.OPS) == 7 and {c[1] for c in CASES} == set(kernels.OPS)
+    assert len(kernels.OPS) == 8 and {c[1] for c in CASES} == set(kernels.OPS)
     for op in kernels.OPS:
         for key in ("CUDA", "CPU", "Meta"):
             assert torch._C._dispatch_has_kernel_for_dispatch_key(f"rtfs::{op}", key), (op, key)
@@ -95,3 +101,5 @@ def test_wrappers_call_the_ops():
     assert torch.equal(y, kernels.dual_path.dual_path_norm_in_ref(x, gamma, beta, 3, 1e-5))
     assert torch.equal(kernels.dual_path.dual_path_out(y, beta, x, seq_dim=3),
                        kernels.dual_path.dual_path_out_ref(y, beta, x, 3))
+    w = kernels.dual_path.dual_path_windows_in(x, gamma, beta, seq_dim=2, k=4, eps=1e-5)
+    assert torch.equal(w, kernels.dual_path.dual_path_windows_in_ref(x, gamma, beta, 2, 4, 1e-5))

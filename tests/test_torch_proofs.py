@@ -193,4 +193,5 @@ def test_av_proof_run_in_bfloat16_moves_every_video_parameter():
     assert len(out["losses"]) == 2 and all(np.isfinite(out["losses"]))
     assert out["video_moved"] == out["video_params"] > 0
     assert set(out["launches"]) == {"K1", "K2_forward", "K2_backward", "K3", "K4",
-                                    "dual_path_norm_in", "dual_path_out"}
+                                    "dual_path_norm_in", "dual_path_out",
+                                    "dual_path_windows_in"}
