@@ -21,7 +21,7 @@ Prints, as its last line, one JSON object with ``bench.py``'s keys
 Each is timed by ``utils.profiling.timed``: one warm-up call, then the
 minimum of 6 calls on distinct inputs, each fenced by a
 ``torch.cuda.synchronize()`` and timed by CUDA events. The line before the
-last gives each phase's kernel launches (K1-K4's wrappers' counts). It
+last gives each phase's kernel launches (every wrapper's count). It
 runs on a card only: without one it exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -44,14 +44,10 @@ KEYS = ("metric", "value", "unit", "vs_baseline", "inference_ms_per_utt",
 
 
 def launch_counts():
-    """Every kernel wrapper's count of launches."""
-    from .ops.kernels import dual_path, dw_conv, sru, sru_direction, sru_train
+    """Every kernel wrapper's count of launches, by label (``ops.kernels.KERNELS``)."""
+    from .ops.kernels import KERNELS
 
-    return {"K1": sru.launches, "K2_forward": sru_train.forward_launches,
-            "K2_backward": sru_train.backward_launches, "K3": dw_conv.launches,
-            "K4": sru_direction.launches, "dual_path_norm_in": dual_path.norm_in_launches,
-            "dual_path_out": dual_path.out_launches,
-            "dual_path_windows_in": dual_path.windows_in_launches}
+    return {k.label: getattr(k.module, k.counter) for k in KERNELS}
 
 
 def launched(fn):

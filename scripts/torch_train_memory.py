@@ -8,7 +8,7 @@ to tell activations from convolution workspace.
 Each variant builds the model from seed 0, runs two steps (AdamW, PIT
 neg-SNR, the target is the mixture) and prints one JSON line with the peak
 of ``torch.cuda.max_memory_allocated`` over the second step, and the step
-time. Variants: TF32 off with cuDNN (the setting of ``chip_smoke.py``'s
+time. Variants: TF32 off with cuDNN (the setting of the card tests'
 float32 runs), TF32 on, cuDNN off, and bfloat16 with TF32 off.
 """
 import copy
@@ -21,29 +21,49 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.dirname(HERE))
 
-import chip_smoke  # noqa: E402  (the same model, optimizer and batch)
+
+def make_system(model, conf, dtype):
+    """``System`` with the config's optimizer and the PIT losses."""
+    import torch
+
+    from rtfs_net_tpu_torch.losses import PITLossWrapper, pairwise_neg_sisdr, pairwise_neg_snr
+    from rtfs_net_tpu_torch.system import System, make_optimizer
+
+    return System(model, make_optimizer(model.parameters(), **conf["optim"]),
+                  {"train": PITLossWrapper(pairwise_neg_snr),
+                   "val": PITLossWrapper(pairwise_neg_sisdr)},
+                  compute_dtype=None if dtype == torch.float32 else dtype)
+
+
+def train_batch(B, gen):
+    """A (mix, target, lip embedding) batch; the target is the mixture."""
+    import torch
+
+    mix = torch.randn((B, 32000), generator=gen, device="cuda")
+    return mix, mix[:, None], 0.1 * torch.randn((B, 512, 50), generator=gen, device="cuda")
 
 
 def main():
     import torch
 
     from rtfs_net_tpu_torch.models import build_model
+    from rtfs_net_tpu_torch.scripts import load_config
 
     if not torch.cuda.is_available():
         print("torch_train_memory: no CUDA device", file=sys.stderr)
         return 2
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
-    base = build_model(chip_smoke.rtfs4_conf(), device="cuda",
-                       generator=torch.Generator().manual_seed(0))
-    batch = chip_smoke.train_batch(16, torch.Generator(device="cuda").manual_seed(3))
+    conf = load_config("lrs2_RTFSNet_4_layer")
+    base = build_model(conf["audionet"], device="cuda", generator=torch.Generator().manual_seed(0))
+    batch = train_batch(16, torch.Generator(device="cuda").manual_seed(3))
     variants = [("tf32_off", torch.float32, False, True), ("tf32_on", torch.float32, True, True),
                 ("cudnn_off", torch.float32, False, False),
                 ("bf16_tf32_off", torch.bfloat16, False, True)]
     for name, dtype, tf32, cudnn in variants:
         torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = tf32
         torch.backends.cudnn.enabled = cudnn
-        system = chip_smoke.make_system(copy.deepcopy(base), dtype)
+        system = make_system(copy.deepcopy(base), conf, dtype)
         gen = torch.Generator(device="cuda").manual_seed(4)
         system.train_step(batch, generator=gen)
         torch.cuda.synchronize()

@@ -16,6 +16,7 @@ import sys
 import pytest
 
 from rtfs_net_tpu_torch import bench
+from rtfs_net_tpu_torch.ops.kernels import KERNELS
 
 from _torch_port import one_torch_thread  # noqa: F401
 from test_torch_avnet import TINY
@@ -71,9 +72,7 @@ def test_launch_counts_cover_every_phase_and_kernel(result):
     _, launches = result
     assert list(launches) == ["serving", "train_b4", "train_b16"]
     for counts in launches.values():
-        assert counts == {"K1": 0, "K2_forward": 0, "K2_backward": 0, "K3": 0, "K4": 0,
-                          "dual_path_norm_in": 0, "dual_path_out": 0,
-                          "dual_path_windows_in": 0}
+        assert counts == {k.label: 0 for k in KERNELS}
 
 
 def test_cli_refuses_to_run_without_a_card():

@@ -4,8 +4,9 @@ bfloat16 ``separate`` from raw frames against the benchmark's float32
 plain reference (``h100_bench/reference/tfgridnet.py``), the
 DualPathRNN's window-layout route's counters and its recurrence span.
 
-Marked ``card``; each test skips without a card. Neither this file nor what
-it imports loads JAX, so it runs on a machine without it::
+Marked ``card``; each test skips without a card (``tests/_torch_card.py``).
+Neither this file nor what it imports loads JAX, so it runs on a machine
+without it::
 
     python3 -m pytest --noconftest -p no:cacheprovider -m card tests/test_torch_card_tfgridnet.py
 
@@ -24,9 +25,10 @@ import yaml
 
 from h100_bench import check, program, spec, trace
 from rtfs_net_tpu_torch.models.layers import rnn_blocks
-from rtfs_net_tpu_torch.ops.kernels import dual_path
 from rtfs_net_tpu_torch.utils import profiling
 from rtfs_net_tpu_torch.utils.separator import separate
+
+from _torch_card import card  # noqa: F401
 
 pytestmark = pytest.mark.card
 
@@ -39,11 +41,9 @@ B = 2
 
 
 @pytest.fixture(scope="module")
-def served():
+def served(card):
     """The port's models with the reference's seeded weights, on the card,
     and one request of B two-second clips with 50 frames of 88x88."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card")
     ref, ref_video = check.reference_models(FILES["reference"], PUBLISHED, SEED, "cuda")
     port, port_video = program.build(PUBLISHED, "cuda", ref.state_dict(), ref_video.state_dict())
     rng = np.random.default_rng(SEED)
@@ -71,13 +71,12 @@ def test_twelve_library_route_calls_a_forward(served):
 
 def test_twelve_window_layout_calls_a_forward(served):
     """Every BLSTM DualPathRNN of the six blocks takes the window-layout
-    route: one launch of ``dual_path_windows_in`` each."""
+    route (its launches, one of ``dual_path_windows_in`` each, are held in
+    ``tests/test_torch_card_paths.py``)."""
     _, _, port, port_video, mix, frames = served
-    calls, launches = rnn_blocks.window_layout_calls, dual_path.windows_in_launches
+    calls = rnn_blocks.window_layout_calls
     separate(port, mix, frames, video_model=port_video, dtype=torch.bfloat16)
-    torch.cuda.synchronize()
     assert rnn_blocks.window_layout_calls - calls == 12
-    assert dual_path.windows_in_launches - launches == 12
 
 
 def test_recurrence_span_holds_the_lstm(served):

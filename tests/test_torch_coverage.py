@@ -61,11 +61,12 @@ PORTED_AT = {
 # a JAX tool (repo-relative path) -> why the port has no counterpart
 LEFT_OUT_TOOLS = {
     "scripts/profile_hlo.py":
-        "dumps XLA HLO; the port's counterpart is chip_smoke.py's profile lines, which "
-        "group kernels by name category",
+        "dumps XLA HLO; the port's counterpart is the kernel categories of "
+        "python3 -m h100_bench --trace 1",
     "scripts/attr_fusions.py":
-        "attributes time to XLA fusions; the port's counterpart is chip_smoke.py's profile "
-        "lines",
+        "attributes time to XLA fusions; the port's counterparts are the per-layer "
+        "breakdown of python3 -m h100_bench --trace 1 and "
+        "rtfs_net_tpu_torch/scripts/profile_serving.py",
     "scripts/bench_interp.py":
         "times selection-matmul interpolation, a TPU lowering the North star leaves out",
     "scripts/bench_layout_r4.py":
@@ -74,11 +75,11 @@ LEFT_OUT_TOOLS = {
         "times the tf_order and selection-matmul lowerings the North star leaves out",
     "scripts/bench_sru_train.py":
         "the Pallas backward against the scan backward; the port's counterpart is "
-        "scripts/torch_kernel_ab.py",
+        "scripts/torch_kernel_times.py",
     "scripts/profile_stages.py":
         "the round-2 stage timing, superseded by profile_serving.py (its lines 5-6)",
     "__graft_entry__.py":
-        "the JAX side's dry-run entry point; the port's are dryrun.py and chip_smoke.py",
+        "the JAX side's dry-run entry point; the port's is dryrun.py",
 }
 
 

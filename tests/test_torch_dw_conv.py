@@ -10,7 +10,8 @@
 * the gate against ``pallas_dw_supported``'s cases, less the TPU's batch
   rule; ``Conv(groups=C, padding="same")`` with the route on and off.
 
-The CUDA kernel itself runs only on the card (``python3 chip_smoke.py``).
+The CUDA kernel itself runs only on the card
+(``tests/test_torch_card_kernels.py``).
 """
 import jax
 import jax.numpy as jnp
@@ -49,9 +50,10 @@ def _library(x, w, pads):
     return F.conv2d(F.pad(x, (lo_f, hi_f, lo_t, hi_t)), w, groups=x.shape[1])
 
 
-# the card's edge cases (chip_smoke.py's DW_EDGE), small: (B, C, T, F, k_t,
-# k_f, pads, offset): B*C = 1 with odd F = 129 and T not a multiple of a
-# band, F = 7, uneven pads, the 7x2 kernel; x a slice at an odd offset
+# the card's edge cases (DW_EDGE of tests/test_torch_card_kernels.py), small:
+# (B, C, T, F, k_t, k_f, pads, offset): B*C = 1 with odd F = 129 and T not
+# a multiple of a band, F = 7, uneven pads, the 7x2 kernel; x a slice at an
+# odd offset
 EDGE_CASES = [
     (1, 1, 13, 129, 4, 4, ((1, 2), (1, 2)), 1),
     (2, 3, 11, 7, 4, 4, ((2, 1), (2, 1)), 0),

@@ -1,7 +1,9 @@
 """The PyTorch port stands alone: nothing under ``rtfs_net_tpu_torch/``,
-nothing in ``chip_smoke.py`` or the port's kernel scripts imports JAX, Flax
-or the JAX package; and each
-kernel's registered CUDA implementation launches its kernel or raises,
+in ``chip_smoke.py``, in the card tests (``tests/_torch_card.py``,
+``tests/test_torch_card_*.py``, which run without the suite's
+``conftest.py``) or in the port's kernel scripts (``scripts/torch_*.py``)
+imports JAX, Flax or the JAX package; and
+each kernel's registered CUDA implementation launches its kernel or raises,
 never runs its plain version instead."""
 import ast
 import pathlib
@@ -9,12 +11,13 @@ import pathlib
 import pytest
 import torch
 
+from rtfs_net_tpu_torch.ops import kernels
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "rtfs_net_tpu")
 PORT = sorted((ROOT / "rtfs_net_tpu_torch").rglob("*.py"))
-FILES = PORT + [ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_kernel_ab.py",
-                ROOT / "scripts" / "torch_serving_ab.py",
-                ROOT / "scripts" / "torch_sru_plans.py"]
+FILES = PORT + [ROOT / "chip_smoke.py", ROOT / "tests" / "_torch_card.py"] + sorted(
+    (ROOT / "tests").glob("test_torch_card_*.py")) + sorted((ROOT / "scripts").glob("torch_*.py"))
 
 
 def _imports(path):
@@ -32,7 +35,7 @@ def test_no_jax_imports(path):
 
 
 def test_port_has_modules():
-    assert len(FILES) > 20 and (ROOT / "chip_smoke.py").exists()
+    assert len(PORT) > 20 and len(FILES) > len(PORT) + 3 and (ROOT / "chip_smoke.py").exists()
 
 
 def test_new_modules_are_covered():
@@ -128,40 +131,35 @@ def _dual_path_windows_in_call(module):
                                             1e-5)
 
 
-# the plain version -> (its op, the CUDA implementation's launch count, its build cache)
-OPS = {"dual_path_norm_in_ref": ("dual_path_norm_in", "norm_in_launches", "_fns"),
-       "dual_path_out_ref": ("dual_path_out", "out_launches", "_fns"),
-       "dual_path_windows_in_ref": ("dual_path_windows_in", "windows_in_launches", "_fns"),
-       "dw_conv2d_same_ref": ("dw_conv2d_same", "launches", "_fn"),
-       "sru_direction_ref": ("sru_direction", "launches", "_fn"),
-       "sru_stack_layer_ref": ("sru_stack_layer", "launches", "_fn"),
-       "sru_train_forward_ref": ("sru_train_forward", "forward_launches", "_fns"),
-       "sru_train_backward_ref": ("sru_train_backward", "backward_launches", "_fns")}
+# each op's CUDA implementation called on tensors that say they lie on a card
+CALLS = {"dw_conv2d_same": _dw_conv_call, "sru_direction": _sru_direction_call,
+         "sru_stack_layer": _sru_stack_layer_call, "sru_train_forward": _sru_train_forward_call,
+         "sru_train_backward": _sru_train_backward_call,
+         "dual_path_norm_in": _dual_path_norm_in_call, "dual_path_out": _dual_path_out_call,
+         "dual_path_windows_in": _dual_path_windows_in_call}
 
 
-@pytest.mark.parametrize("name,plain,call", [
-    ("dw_conv", "dw_conv2d_same_ref", _dw_conv_call),
-    ("sru_direction", "sru_direction_ref", _sru_direction_call),
-    ("sru", "sru_stack_layer_ref", _sru_stack_layer_call),
-    ("sru_train", "sru_train_forward_ref", _sru_train_forward_call),
-    ("sru_train", "sru_train_backward_ref", _sru_train_backward_call),
-    ("dual_path", "dual_path_norm_in_ref", _dual_path_norm_in_call),
-    ("dual_path", "dual_path_out_ref", _dual_path_out_call),
-    ("dual_path", "dual_path_windows_in_ref", _dual_path_windows_in_call),
-])
-def test_wrapper_raises_without_a_build(monkeypatch, tmp_path, name, plain, call):
+def _wrapper_case(kernel):
+    name = kernel.module.__name__.rsplit(".", 1)[-1]
+    call = CALLS.get(kernel.op)
+    call_name = getattr(call, "__name__", None)
+    return pytest.param(kernel, call, id=f"{name}-{kernel.op}_ref-{call_name}")
+
+
+@pytest.mark.parametrize("kernel,call", [_wrapper_case(k) for k in kernels.KERNELS])
+def test_wrapper_raises_without_a_build(monkeypatch, tmp_path, kernel, call):
     """Each op has a CUDA implementation registered, and that
     implementation, given tensors on a card and no ``nvcc``, fails to build
     its kernel and raises: the plain version is not taken in its place and
     no launch is counted. (The dispatcher sends a CPU tensor, which
     ``_OnCard`` is underneath, to the CPU implementation, so the CUDA one is
     called directly.)"""
-    import importlib
-
     from rtfs_net_tpu_torch.ops.kernels import build
 
-    module = importlib.import_module(f"rtfs_net_tpu_torch.ops.kernels.{name}")
-    op, counter, cache = OPS[plain]
+    assert call is not None, f"no call of {kernel.op}'s CUDA implementation in CALLS"
+    module, op, counter = kernel.module, kernel.op, kernel.counter
+    plain = f"{op}_ref"
+    cache = "_fns" if hasattr(module, "_fns") else "_fn"
     assert torch._C._dispatch_has_kernel_for_dispatch_key(f"rtfs::{op}", "CUDA")
 
     def no_fallback(*args, **kwargs):

@@ -6,7 +6,8 @@ the SRU module, and the kernel wrapper's dispatch and input checks.
   within 1e-5 as tests/test_pallas_sru_v3.py holds the kernel to scan;
 * the port ``SRU`` against the JAX ``SRU`` (its scan path), within 1e-5.
 
-The CUDA kernel itself runs only on the card (``python3 chip_smoke.py``).
+The CUDA kernel itself runs only on the card
+(``tests/test_torch_card_kernels.py``).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -35,8 +36,9 @@ def _layer_inputs(rng, L, k, H, ndir, B):
     return u, skip, v, b
 
 
-# edge shapes (chip_smoke.py's SRU_EDGE): (L, rows, k, ndir): L = 1 and 2,
-# odd rows 63 and 125 (the bfloat16 ring takes no odd rows)
+# edge shapes (SRU_EDGE of tests/test_torch_card_kernels.py):
+# (L, rows, k, ndir): L = 1 and 2, odd rows 63 and 125 (the bfloat16 ring
+# takes no odd rows)
 EDGE_CASES = [(1, 16, 3, 2), (2, 16, 4, 1), (2, 63, 4, 2), (3, 125, 3, 1)]
 
 

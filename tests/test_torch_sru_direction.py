@@ -8,7 +8,8 @@
   against the JAX module (atol 1e-5), with and without a window;
 * the refusal under autograd, and unknown backends.
 
-The CUDA kernel itself runs only on the card (``python3 chip_smoke.py``).
+The CUDA kernel itself runs only on the card
+(``tests/test_torch_card_kernels.py``).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -34,9 +35,10 @@ def _direction_inputs(rng, L, B, H):
     return u, skip, gates
 
 
-# edge shapes (chip_smoke.py's SRU_DIR_EDGE): (L, B, H, offset): L = 1 and
-# 2, odd rows 63 and 125, odd H, and u's storage starting at an odd element
-# offset (the bfloat16 ring takes neither odd H nor misaligned words)
+# edge shapes (SRU_DIR_EDGE of tests/test_torch_card_kernels.py):
+# (L, B, H, offset): L = 1 and 2, odd rows 63 and 125, odd H, and u's
+# storage starting at an odd element offset (the bfloat16 ring takes
+# neither odd H nor misaligned words)
 EDGE_CASES = [(1, 16, 8, 0), (2, 63, 8, 0), (5, 125, 8, 0), (13, 16, 7, 0), (13, 16, 8, 1)]
 
 

@@ -15,7 +15,8 @@ the differentiable SRU, and the routing between the two SRU kernels.
   grad-enabled call to the training kernel and a no-grad call to the
   inference kernel.
 
-The CUDA kernels themselves run only on the card (``python3 chip_smoke.py``).
+The CUDA kernels themselves run only on the card
+(``tests/test_torch_card_kernels.py``).
 """
 import jax
 import jax.numpy as jnp
@@ -68,8 +69,8 @@ def _jax_direction(u0, u1, u2, sk, vf, vr, bf, br, dh, reverse):
     return h, c, jax.lax.cond(reverse, lambda: grads(True), lambda: grads(False))
 
 
-# the card's edge shapes (chip_smoke.py's SRU_EDGE): (L, rows, k, ndir):
-# L = 1 and 2, rows 125 and 63 (odd) and 500
+# the card's edge shapes (SRU_EDGE of tests/test_torch_card_kernels.py):
+# (L, rows, k, ndir): L = 1 and 2, rows 125 and 63 (odd) and 500
 EDGE_CASES = [(1, 125, 3, 1), (2, 63, 4, 2), (2, 500, 3, 2)]
 
 
